@@ -1,0 +1,151 @@
+"""U-Net backbone over the internal grid (counterpart of
+``deepsensornz_tpu/models/unet.py``).
+
+The plain graph of the JAX ``UNet.__call__``: a 1×1 stem, L stride-2 k×k
+down convs, a stride-1 bottleneck, L stride-2 transposed-conv (or nearest
++ conv) ups with skip concatenation and a stride-1 mix conv each, and a
+1×1 head. Parameters are float32; the convs compute in ``compute_dtype``.
+
+The JAX module's ``lane_pack``, ``s2d``/``packw`` down-sampling and
+``subpixel`` up-sampling are exact reparameterisations of this same graph
+with the same parameter names and shapes, written for the TPU's layouts;
+the port computes the plain graph whatever those fields say.
+
+Padding follows flax's ``"SAME"`` exactly, which torch's symmetric
+``padding=`` does not: a stride-2 conv pads ``total = max((⌈n/s⌉-1)·s + k
+- n, 0)`` split low-first (``low = total // 2``), and a stride-2 SAME
+transposed conv equals ``conv_transpose2d`` with the flax kernel flipped
+spatially (done once, in :func:`..train.checkpoint.params_from_jax`),
+padding ``k-1-pad_a`` and the surplus trailing row/column cropped.
+
+Tensors are NCHW in PyTorch's sense; the model keeps them in
+``torch.channels_last`` memory, so an NHWC tensor enters and leaves
+without a copy.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
+    """flax's ``lecun_normal``: truncated normal (±2σ) with variance 1/fan_in."""
+    # 0.8796...: std of a standard normal truncated to [-2, 2]
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _transpose_pads(k: int, s: int = 2) -> tuple[int, int]:
+    """lax ``conv_transpose`` SAME padding (pad_a, pad_b) of the dilated input."""
+    pad_len = k + s - 2
+    pad_a = k - 1 if s > k - 1 else math.ceil(pad_len / 2)
+    return pad_a, pad_len - pad_a
+
+
+class Conv(nn.Conv2d):
+    """A flax ``nn.Conv`` with SAME padding: weight (O, I, k, k), bias (O,)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, *,
+                 generator=None, device=None):
+        super().__init__(cin, cout, k, stride=stride, device=device)
+        lecun_normal_(self.weight, cin * k * k, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s = self.kernel_size[0], self.stride[0]
+        (hl, hh), (wl, wh) = _same_pads(x.shape[2], k, s), _same_pads(x.shape[3], k, s)
+        if s == 1 and hl == hh and wl == wh:
+            return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=hl)
+        x = F.pad(x, (wl, wh, hl, hh))
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=s)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """A flax ``nn.ConvTranspose`` with stride 2 and SAME padding; weight
+    (I, O, k, k) holds the flax kernel flipped spatially."""
+
+    def __init__(self, cin: int, cout: int, k: int, *, generator=None, device=None):
+        super().__init__(cin, cout, k, stride=2, device=device)
+        # flax's fan_in for a (k, k, in, out) kernel is k·k·in
+        lecun_normal_(self.weight, cin * k * k, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel_size[0]
+        pad_a, pad_b = _transpose_pads(k)
+        extra = pad_b - pad_a  # >0: pad at the end, <0: crop at the end
+        y = F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                               stride=2, padding=k - 1 - pad_a,
+                               output_padding=max(extra, 0))
+        if extra < 0:
+            y = y[:, :, :extra, :extra]
+        return y
+
+
+class UNet(nn.Module):
+    """Stride-2 conv U-Net. forward: (B, C, H, W) → (B, out_channels, H, W)
+    float32; H and W must be divisible by ``2**len(channels)``."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int] = (64, 64, 64, 64),
+                 out_channels: int = 64, kernel_size: int = 5,
+                 compute_dtype: torch.dtype = torch.float32, upsample: str = "transpose",
+                 top_kernel: Optional[int] = None, *, generator=None, device=None):
+        super().__init__()
+        if upsample not in ("transpose", "subpixel", "nearest"):
+            raise ValueError(f"unknown upsample {upsample!r}")
+        self.channels = tuple(channels)
+        self.compute_dtype = compute_dtype
+        self.upsample = upsample
+        kw = dict(generator=generator, device=device)
+
+        def ksz(level: int) -> int:
+            return top_kernel if (level == 0 and top_kernel is not None) else kernel_size
+
+        self.stem = Conv(in_channels, self.channels[0], 1, **kw)
+        cin = self.channels[0]
+        for i, ch in enumerate(self.channels):
+            setattr(self, f"down_{i}", Conv(cin, ch, ksz(i), stride=2, **kw))
+            cin = ch
+        L = len(self.channels)
+        self.bottleneck = Conv(cin, self.channels[-1], ksz(L), **kw)
+        cin = self.channels[-1]
+        # skips[i] has the width of the level's input: channels[i-1], stem at 0
+        skip = (self.channels[0],) + self.channels[:-1]
+        for i in reversed(range(L)):
+            ch = self.channels[i]
+            if upsample == "nearest":
+                up = Conv(cin, ch, ksz(i), **kw)
+            else:  # "subpixel" is the same transposed conv, reparameterised
+                up = ConvTranspose(cin, ch, ksz(i), **kw)
+            setattr(self, f"up_{i}", up)
+            setattr(self, f"up_mix_{i}", Conv(ch + skip[i], ch, ksz(i), **kw))
+            cin = ch
+        self.head = Conv(cin, out_channels, 1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.stem(x.to(self.compute_dtype))
+        skips = []
+        for i in range(len(self.channels)):
+            x = F.relu(x)
+            skips.append(x)
+            x = getattr(self, f"down_{i}")(x)
+        x = self.bottleneck(F.relu(x))
+        for i in reversed(range(len(self.channels))):
+            x = F.relu(x)
+            if self.upsample == "nearest":
+                x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+            x = getattr(self, f"up_{i}")(x)
+            x = torch.cat([x, skips[i]], dim=1)
+            x = getattr(self, f"up_mix_{i}")(F.relu(x))
+        return self.head(F.relu(x)).float()

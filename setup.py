@@ -10,7 +10,10 @@ setup(
         "Zealand (JAX/XLA/Pallas)"
     ),
     packages=find_packages(exclude=("tests", "tests.*")),
-    package_data={"deepsensornz_tpu": ["data/station_registry.json"]},
+    package_data={
+        "deepsensornz_tpu": ["data/station_registry.json"],
+        "deepsensornz_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+    },
     include_package_data=True,
     python_requires=">=3.10",
     install_requires=[

@@ -1,0 +1,227 @@
+"""PyTorch ``Predictor.predict_grid`` against the JAX ``Predictor`` (CPU).
+
+The setting is tests/test_predict.py's: synthetic NZ-like data through the
+JAX ``TaskLoader``, a small gnp ConvNP at float32, and a DEM with NaN sea
+cells. The port gets the same parameters (``params_from_jax``), the same
+task (``TaskBatch.from_numpy``) and the processor through its JSON file.
+Also covers the host-side copies the slice carries (grids, fields,
+processor, task padding) against their JAX originals.
+
+Tolerance: physical-unit fields agree to rtol 1e-5 with an atol of 1e-5
+times the field's largest magnitude (f32 forward, different summation
+order; unnormalisation multiplies by the target's std).
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from deepsensornz_tpu.data import grid as jgrid
+from deepsensornz_tpu.data.processor import DataProcessor as JProcessor
+from deepsensornz_tpu.data.synthetic import synthetic_bundle
+from deepsensornz_tpu.infer.predict import Predictor as JPredictor
+from deepsensornz_tpu.models.convnp import ConvNP as JConvNP
+from deepsensornz_tpu.models.convnp import ConvNPConfig as JConfig
+from deepsensornz_tpu.ops import grids as jgrids
+from deepsensornz_tpu.task import task as jtaskmod
+from deepsensornz_tpu.task.loader import TaskLoader
+from deepsensornz_tpu_torch.data.grid import Dataset, Field
+from deepsensornz_tpu_torch.data.processor import DataProcessor
+from deepsensornz_tpu_torch.infer.predict import Predictor
+from deepsensornz_tpu_torch.models.convnp import ConvNP, ConvNPConfig
+from deepsensornz_tpu_torch.ops import grids as tgrids
+from deepsensornz_tpu_torch.task import task as ttaskmod
+from deepsensornz_tpu_torch.task.task import TaskBatch
+from deepsensornz_tpu_torch.train.checkpoint import params_from_jax
+
+
+def _field(f) -> Field:
+    return Field(f.data, f.dims, f.coords, f.name, dict(f.attrs))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * float(np.nanmax(np.abs(want))))
+
+
+@pytest.fixture(scope="module")
+def setting(tmp_path_factory):
+    base, dem, stations = synthetic_bundle(n_times=6, base_hw=(16, 16), dem_hw=(48, 48),
+                                           n_stations=16)
+    jdp = JProcessor()
+    jdp.set_coord_maps_from_extent(
+        dem.coords["latitude"].min(), dem.coords["latitude"].max(),
+        dem.coords["longitude"].min(), dem.coords["longitude"].max())
+    dem_n = jdp(dem.fillna(0.0).rename("elevation"), method="min_max")
+    st_col = [c for c in stations.columns if c.endswith("_station")][0]
+    tl = TaskLoader(context=[jdp(base, method="mean_std"), jdp(stations, method="mean_std")],
+                    target=jdp(stations), aux_at_targets=dem_n,
+                    internal_density=32, grid_multiple=16)
+    jcfg = JConfig(unet_channels=(8, 8), likelihood="gnp", internal_density=32,
+                   decoder_channels=8, mlp_hidden=8, rank=4, compute_dtype="float32")
+    jmodel = JConvNP(jcfg)
+    jtask = tl(list(base.coords["time"][:2]))
+    params = jmodel.init(jax.random.key(0), jtask)
+
+    path = tmp_path_factory.mktemp("dp") / "data_processor.json"
+    jdp.save(str(path))
+    dp = DataProcessor.load(str(path))
+    task = TaskBatch.from_numpy(jtask)
+    model = ConvNP.from_task(ConvNPConfig(**dataclasses.asdict(jcfg)), task)
+    model.load_state_dict(params_from_jax(jax.device_get(params)), strict=True)
+    return dict(jpred=JPredictor(jmodel, params, jdp, st_col), pred=Predictor(model, dp, st_col),
+                jtask=jtask, task=task, jdem=dem, dem=_field(dem), jaux=dem_n,
+                aux=_field(dem_n), st_col=st_col, model=model, dp=dp)
+
+
+def _both(s, **kw):
+    a = s["jpred"].predict_grid(s["jtask"], s["jdem"], aux_at_targets=s["jaux"], **kw)
+    b = s["pred"].predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"], **kw)
+    return a, b
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(unnormalise=False),
+    dict(resolution_factor=0.5),
+    dict(resolution_factor=1.5),
+    dict(sea_mask=False),
+    dict(outputs=("mean",)),
+])
+def test_predict_grid_matches_jax(setting, kw):
+    a, b = _both(setting, **kw)
+    assert set(b) == set(a)
+    for key in a:
+        fa, fb = a[key], b[key]
+        assert fb.dims == fa.dims == ("time", "latitude", "longitude")
+        assert fb.shape == fa.shape
+        for d in fa.dims:
+            np.testing.assert_array_equal(fb.coords[d], fa.coords[d])
+        np.testing.assert_array_equal(np.isnan(fb.data), np.isnan(fa.data))
+        _close(fb.data, fa.data)
+
+
+def test_predict_grid_fields_and_sea_mask(setting):
+    out = setting["pred"].predict_grid(setting["task"], setting["dem"],
+                                       aux_at_targets=setting["aux"], times=[10, 11])
+    sea = np.isnan(setting["dem"].data)
+    assert out["mean"].shape == (2, 48, 48)
+    np.testing.assert_array_equal(out["mean"].coords["time"], [10, 11])
+    assert np.isnan(out["mean"].data[:, sea]).all()
+    assert np.isfinite(out["mean"].data[:, ~sea]).all()
+    assert (out["std"].data[:, ~sea] > 0).all()
+
+
+def test_std_scale_matches_jax(setting):
+    s = setting
+    jp = JPredictor(s["jpred"].model, s["jpred"].params, s["jpred"].dp, s["st_col"],
+                    std_scale=2.0)
+    tp = Predictor(s["model"], s["dp"], s["st_col"], std_scale=2.0)
+    a = jp.predict_grid(s["jtask"], s["jdem"], aux_at_targets=s["jaux"])
+    b = tp.predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"])
+    base = s["pred"].predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"])
+    for key in ("mean", "std"):
+        _close(b[key].data, a[key].data)
+    land = ~np.isnan(s["dem"].data)
+    np.testing.assert_allclose(b["std"].data[:, land], 2.0 * base["std"].data[:, land],
+                               rtol=1e-5)
+
+
+def test_unnormalisation_is_the_target_affine(setting):
+    s = setting
+    phys = s["pred"].predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"])
+    norm = s["pred"].predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"],
+                                  unnormalise=False)
+    p = s["dp"].config[s["st_col"]]["params"]
+    land = ~np.isnan(s["dem"].data)
+    np.testing.assert_allclose(phys["mean"].data[:, land],
+                               norm["mean"].data[:, land] * p["std"] + p["mean"],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kw,call_kw", [
+    (dict(transfer_dtype="float16"), {}), (dict(batch_chunk=2), {}),
+    (dict(upload_dtype="float16"), {}), ({}, dict(n_samples=4)),
+])
+def test_unported_options_raise(setting, kw, call_kw):
+    s = setting
+    with pytest.raises(NotImplementedError):
+        Predictor(s["model"], s["dp"], s["st_col"], **kw).predict_grid(
+            s["task"], s["dem"], aux_at_targets=s["aux"], **call_kw)
+
+
+# -- host-side copies against their JAX originals ------------------------------------
+
+
+@pytest.mark.parametrize("density,margin,multiple", [(500, 0.1, 16), (40, 0.05, 8), (33.3, 0.0, 16)])
+def test_internal_grid_matches_jax(density, margin, multiple):
+    a = jgrids.internal_grid((0.0, 1.0), (-0.2, 0.7), density, margin, multiple)
+    b = tgrids.internal_grid((0.0, 1.0), (-0.2, 0.7), density, margin, multiple)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert jgrids.default_lengthscale(density) == tgrids.default_lengthscale(density)
+
+
+def test_field_ops_match_jax(rng):
+    data = rng.normal(size=(3, 10, 9))
+    data[:, 2:4, 5] = np.nan
+    coords = {"time": np.arange(3), "latitude": np.linspace(-40, -35, 10)[::-1],
+              "longitude": np.linspace(170, 175, 9)}
+    jf = jgrid.Field(data, ("time", "latitude", "longitude"), coords, "t")
+    tf = Field(data, ("time", "latitude", "longitude"), coords, "t")
+    new = np.linspace(-41, -34, 13)
+    pairs = [
+        (jf.coarsen(2), tf.coarsen(2)),
+        (jf.fillna(0.5), tf.fillna(0.5)),
+        (jf.rename("u"), tf.rename("u")),
+        (jf._interp_one("latitude", new, "linear"), tf._interp_one("latitude", new, "linear")),
+        (jf._interp_one("longitude", new + 210, "nearest"),
+         tf._interp_one("longitude", new + 210, "nearest")),
+    ]
+    for a, b in pairs:
+        assert (b.name, b.dims, b.shape) == (a.name, a.dims, a.shape)
+        np.testing.assert_array_equal(b.data, a.data)
+        for d in a.coords:
+            np.testing.assert_array_equal(b.coords[d], a.coords[d])
+    ds = Dataset([tf, tf.rename("v")])
+    assert list(ds) == ["t", "v"] and ds["v"].name == "v"
+
+
+def test_processor_json_roundtrip_matches_jax(tmp_path, rng):
+    jdp = JProcessor()
+    jdp.set_coord_maps_from_extent(-47.95, -34.05, 165.75, 178.7)
+    jdp.config = {"t": {"method": "mean_std", "params": {"mean": 11.0, "std": 4.0}},
+                  "h": {"method": "min_max", "params": {"min": 0.0, "max": 100.0}},
+                  "p": {"method": "positive_semidefinite", "params": {"std": 2.5}}}
+    jdp.save(str(tmp_path / "dp.json"))
+    dp = DataProcessor.load(str(tmp_path / "dp.json"))
+    lat = rng.uniform(-48, -34, 20)
+    np.testing.assert_array_equal(dp.map_x1(lat), jdp.map_x1(lat))
+    np.testing.assert_array_equal(dp.map_x2(lat + 210), jdp.map_x2(lat + 210))
+    np.testing.assert_array_equal(dp.unmap_x1(lat), jdp.unmap_x1(lat))
+    v = rng.normal(size=7)
+    for name in jdp.config:
+        for inverse in (False, True):
+            np.testing.assert_array_equal(dp._apply_values(name, v, inverse),
+                                          jdp._apply_values(name, v, inverse))
+    dp.save(str(tmp_path / "again.json"))
+    assert JProcessor.load(str(tmp_path / "again.json")).to_dict() == jdp.to_dict()
+
+
+def test_pad_points_and_task_conversion_match_jax(rng, setting):
+    x = rng.random((5, 2)).astype(np.float32)
+    y = rng.normal(size=(5, 1)).astype(np.float32)
+    y[2] = np.nan
+    for a, b in zip(jtaskmod.pad_points(x, y, 8), ttaskmod.pad_points(x, y, 8)):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError):
+        ttaskmod.pad_points(x, y, 4)
+    jt, t = setting["jtask"], setting["task"]
+    assert t.batch_size == jt.batch_size and t.num_targets == jt.num_targets
+    np.testing.assert_array_equal(t.points[0].x.numpy(), np.asarray(jt.points[0].x))
+    np.testing.assert_array_equal(t.grids[0].y.numpy(), np.asarray(jt.grids[0].y))
+    moved = t.to("cpu")
+    assert moved.grids[0].mask is None or moved.grids[0].mask.dtype == torch.float32
