@@ -7,12 +7,16 @@ Phases (one line each; the first failure exits non-zero):
 1. device  - require CUDA; print the card and ``nvidia-smi``'s name and
              power limit; set and print the TF32 switches (both off).
 2. build   - compile the SetConv CUDA kernels (nvcc, sm_90a) from
-             ``deepsensornz_tpu_torch/csrc``.
+             ``deepsensornz_tpu_torch/csrc``; print ptxas's registers and
+             spills, and each kernel's HGMMA/HMMA count from
+             ``cuobjdump -sass`` (fails if a kernel has none).
 3. kernels - each kernel against its plain PyTorch version on the tensors
              the serving path feeds it: the 24x512 station set onto the
-             608x608 internal grid (encode), the 24x608x608x64 U-Net output
-             onto the 278x260 NZ 0.05 deg grid (decode). Median CUDA-event
-             times of kernel and plain version.
+             608x608 internal grid (encode), the 24x608x608x64 bf16 U-Net
+             output onto the 278x260 NZ 0.05 deg grid (decode), and the
+             decode of f32 features at 4 tasks (the f32 / hoisted-head
+             path). Median CUDA-event times of kernel and plain version,
+             and TFLOP/s on the useful FLOPs.
 4. serve   - the flagship ConvNP (U-Net (64,)*4, k=5, gnp rank 64, density
              500, bf16 U-Net, random weights from a seed) behind
              ``Predictor.predict_grid``: three requests of 24 tasks; checks
@@ -39,6 +43,7 @@ REPO = Path(__file__).resolve().parent
 N_TASKS = 24
 N_REQUESTS = 3
 N_STATIONS = 512
+F32_TASKS = 4  # depth of the f32-features decode check
 TARGET_HW = (278, 260)  # NZ at 0.05 deg
 TIMING_REPS = 5
 # f32 agreement of a kernel with its plain version: the two sum in different
@@ -85,6 +90,25 @@ def compare(got, ref, rtol: float, atol_frac: float) -> dict:
     return {"max_abs_err": float(err.max()),
             "max_rel_err": float((err / (ref.abs() + atol + 1e-30)).max()),
             "atol": atol, "ok": worst <= 0.0}
+
+
+def sass_tensor_ops(lib_path: Path) -> dict:
+    """HGMMA/HMMA instruction counts per kernel in ``cuobjdump -sass`` of
+    the built library: shows that the tensor cores are really used."""
+    from deepsensornz_tpu_torch.ops._build import find_nvcc
+
+    cuobjdump = str(Path(find_nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split(None, 1)[0]
+        if "kernel" not in fn:
+            continue
+        counts[fn] = {op: sum(1 for line in part.splitlines()
+                              if f" {op}." in line or f" {op} " in line)
+                      for op in ("HGMMA", "HMMA")}
+    return counts
 
 
 def cuda_ms(fn, reps: int = TIMING_REPS) -> float:
@@ -215,8 +239,14 @@ def main() -> int:
     _build.load_library()
     say("build", f"{lib_path.name} in {time.perf_counter() - t0:.2f} s")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             say("build", line.strip())
+    tensor_ops = sass_tensor_ops(lib_path)
+    for name, counts in tensor_ops.items():
+        say("build", f"SASS {name}: {counts}")
+    for name in KERNELS:
+        if not any(v for k, c in tensor_ops.items() if name in k for v in c.values()):
+            raise AssertionError(f"no HGMMA/HMMA instruction in {name}'s SASS")
 
     # -- 3. kernels against their plain versions -----------------------------------
     target_var = "temperature_station"
@@ -232,16 +262,25 @@ def main() -> int:
         task = task0.to(dev)
         p = task.points[0]
         enc_args = (task.x1g, task.x2g, p.x, p.y, p.mask, model.lengthscale("ls_points_0"))
-        f = model.features(task).contiguous()
+        f = model.features(task)  # bf16, channel-first memory seen as NHWC
         xt1 = torch.from_numpy(dp.map_x1(dem.coords["latitude"]).astype(np.float32)).to(dev)
         xt2 = torch.from_numpy(dp.map_x2(dem.coords["longitude"]).astype(np.float32)).to(dev)
-        dec_args = (task.x1g, task.x2g, f, xt1, xt2, model.lengthscale("ls_decoder"))
+        ls_dec = model.lengthscale("ls_decoder")
+        # the flagship path hands the U-Net's bf16 output to the decode; the
+        # f32 path (f32 U-Net, hoisted head) is held at a smaller depth
+        f4 = f[:F32_TASKS].float()
+        B, H, W, C = f.shape
+        Ht, Wt = TARGET_HW
+        dec_flop = 2.0 * C * (Ht * H * W + Ht * W * Wt)  # per task, both contractions
         cases = {
             "encode_offgrid": (setconv_cuda.encode_offgrid, setconv.setconv_encode_offgrid,
-                               enc_args),
-            "decode_grid": (setconv_cuda.decode_grid, setconv.setconv_decode_grid, dec_args),
+                               enc_args, 2.0 * N_TASKS * H * W * N_STATIONS * (p.y.shape[-1] + 1)),
+            "decode_grid": (setconv_cuda.decode_grid, setconv.setconv_decode_grid,
+                            (task.x1g, task.x2g, f, xt1, xt2, ls_dec), N_TASKS * dec_flop),
+            "decode_grid_f32": (setconv_cuda.decode_grid, setconv.setconv_decode_grid,
+                                (task.x1g, task.x2g, f4, xt1, xt2, ls_dec), F32_TASKS * dec_flop),
         }
-        for name, (kernel, plain, args) in cases.items():
+        for name, (kernel, plain, args, flop) in cases.items():
             got = kernel(*args)
             torch.cuda.synchronize()
             cmp = compare(got, plain(*args), RTOL, ATOL_FRAC)
@@ -249,11 +288,13 @@ def main() -> int:
             plain_ms = cuda_ms(lambda: plain(*args))
             say("kernels", f"{name} {tuple(got.shape)}: max_abs_err {cmp['max_abs_err']:.3e} "
                 f"max_rel_err {cmp['max_rel_err']:.3e} (rtol {RTOL}, atol {cmp['atol']:.3e}) "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+                f"{flop / 1e9:.1f} GFLOP useful: kernel {flop / ms / 1e9:.1f} TFLOP/s, "
+                f"plain {flop / plain_ms / 1e9:.1f} TFLOP/s")
             if not cmp["ok"]:
                 raise AssertionError(f"{name} disagrees with its plain version")
             results[name] = {"max_abs_err": cmp["max_abs_err"], "ms": ms, "plain_ms": plain_ms}
-        del f, got, task
+        del f, f4, got, task
 
     # -- 4. serve three 24-task requests ---------------------------------------------
     predictor = Predictor(model, dp, target_var)

@@ -187,9 +187,11 @@ class ConvNP(nn.Module):
         return torch.cat(enc, dim=-1)
 
     def features(self, task: TaskBatch) -> torch.Tensor:
-        """U-Net features on the internal grid, NHWC float32 (B, H, W, decoder_channels)."""
+        """U-Net features on the internal grid, NHWC (B, H, W, decoder_channels),
+        in the U-Net's compute dtype: the gridded decode kernel reads bf16
+        features as they are (their f32 widening holds the same values)."""
         h = self.encode(task).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
-        return self.unet(h).permute(0, 2, 3, 1)
+        return self.unet.raw(h).permute(0, 2, 3, 1)
 
     def forward(self, task: TaskBatch, target_grid: Optional[tuple] = None) -> torch.Tensor:
         cfg = self.cfg
@@ -210,17 +212,16 @@ class ConvNP(nn.Module):
         )
         if hoist:
             # the decode is linear in f: decode(f) @ W == decode(f @ W)
-            g = (f @ k0[:, :dc].T).contiguous()
+            g = (f.float() @ k0[:, :dc].T).contiguous()
             z = setconv_cuda.decode_grid(task.x1g, task.x2g, g, xt1, xt2, ls_dec)
             if aux is not None:
                 z = z + aux.float() @ k0[:, dc:].T
             z = z + b0
         else:
             if target_grid is None:
-                dec = setconv_decode_offgrid(task.x1g, task.x2g, f, task.xt, ls_dec)
+                dec = setconv_decode_offgrid(task.x1g, task.x2g, f.float(), task.xt, ls_dec)
             else:
-                dec = setconv_cuda.decode_grid(task.x1g, task.x2g, f.contiguous(),
-                                               xt1, xt2, ls_dec)
+                dec = setconv_cuda.decode_grid(task.x1g, task.x2g, f, xt1, xt2, ls_dec)
             if aux is not None:
                 dec = torch.cat([dec, aux.float()], dim=-1)
             z = F.linear(dec, k0, b0)

@@ -134,6 +134,11 @@ class UNet(nn.Module):
         self.head = Conv(cin, out_channels, 1, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.raw(x).float()
+
+    def raw(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward pass with the output left in ``compute_dtype``: in
+        bf16 its values are exactly those :meth:`forward` widens to f32."""
         x = self.stem(x.to(self.compute_dtype))
         skips = []
         for i in range(len(self.channels)):
@@ -148,4 +153,15 @@ class UNet(nn.Module):
             x = getattr(self, f"up_{i}")(x)
             x = torch.cat([x, skips[i]], dim=1)
             x = getattr(self, f"up_mix_{i}")(F.relu(x))
-        return self.head(F.relu(x)).float()
+        return self._head_channel_first(F.relu(x))
+
+    def _head_channel_first(self, x: torch.Tensor) -> torch.Tensor:
+        """The 1×1 head as one batched product that writes channel-first
+        memory (a contiguous (B, C, H, W)) from channels-last x without a
+        transpose pass: the decode kernel reads the channel planes in place."""
+        B, _, H, W = x.shape
+        w = self.head.weight.to(x.dtype).flatten(1)          # (C, cin)
+        xs = x.permute(0, 2, 3, 1).reshape(B, H * W, -1)     # a view when channels-last
+        out = torch.matmul(w, xs.transpose(1, 2))            # (B, C, H·W)
+        out += self.head.bias.to(x.dtype)[:, None]
+        return out.view(B, -1, H, W)

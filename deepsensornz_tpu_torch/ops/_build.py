@@ -1,7 +1,8 @@
 """Build and load the SetConv CUDA kernels (``csrc/*.cu``).
 
 The kernels have a plain C interface and are compiled with ``nvcc`` for
-``sm_90a`` into one shared library, loaded with ``ctypes``. The build runs
+``sm_90a`` into one shared library (the ``.cuh`` headers they include are
+hashed with them), loaded with ``ctypes``. The build runs
 at first use, from the package's own sources, into ``_build/`` beside
 them; the library's name carries a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the existing library.
@@ -21,7 +22,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("setconv_encode.cu", "setconv_decode.cu")
+SOURCES = ("mma_split.cuh", "setconv_encode.cu", "setconv_decode.cu")  # all hashed
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -60,7 +61,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC_DIR / name) for name in SOURCES)]
+           *(str(CSRC_DIR / name) for name in SOURCES if name.endswith(".cu"))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -79,7 +80,7 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.setconv_encode_offgrid.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.setconv_encode_offgrid.restype = i
-    lib.setconv_decode_grid.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.setconv_decode_grid.argtypes = [p, p, i, p, p, p, p, p, p, *[i] * 12, p]
     lib.setconv_decode_grid.restype = i
     lib.setconv_error_string.argtypes = [i]
     lib.setconv_error_string.restype = ctypes.c_char_p

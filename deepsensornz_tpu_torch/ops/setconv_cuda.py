@@ -21,10 +21,14 @@ synchronise.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from deepsensornz_tpu_torch.ops import setconv as plain
 
-MAX_ENCODE_CHANNELS = 8  # density + values; the kernel's widest instantiation
+# csrc/setconv_decode.cu: target rows per block, source rows per k-block and
+# source columns per chunk (all 64); target-column tiles of 8 per block
+DECODE_BLOCK = 64
+DECODE_MAX_TILES = 11
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -77,9 +81,6 @@ def encode_offgrid(x1g, x2g, x, y, mask, lengthscale) -> torch.Tensor:
     dev = x.device
     B, N, C = y.shape
     H, W = x1g.shape[0], x2g.shape[0]
-    if C + 1 > MAX_ENCODE_CHANNELS:
-        raise ValueError(f"encode kernel takes at most {MAX_ENCODE_CHANNELS - 1} "
-                         f"value channels, got {C}")
     for name, t, shape in (("x1g", x1g, (H,)), ("x2g", x2g, (W,)), ("x", x, (B, N, 2)),
                            ("y", y, (B, N, C)), ("mask", mask, (B, N))):
         _check(name, t, shape, dev)
@@ -97,29 +98,121 @@ def encode_offgrid(x1g, x2g, x, y, mask, lengthscale) -> torch.Tensor:
 encode_offgrid.launches = 0
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x = hi + mid + lo (+ below 2^-24 |x|), each bf16: the bf16x3 split."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def _span(nz: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per row of a (R, L) bool mask, the block range [lo, hi) that holds
+    every True entry; (0, 0) for a row without one."""
+    L = nz.shape[1]
+    has = nz.any(1)
+    first = nz.int().argmax(1)
+    last = L - 1 - nz.flip(1).int().argmax(1)
+    lo = torch.where(has, first // block, 0)
+    hi = torch.where(has, last // block + 1, 0)
+    return lo, hi
+
+
+def decode_tiling(Ht: int, W: int, Wt: int) -> dict:
+    """How the decode kernel tiles the target grid: target-row tiles (nTT),
+    source-column chunks (nWC), target-column tiles of 8 (NTg) and the
+    blocks over them (nUT blocks of ``tiles_per_ut`` tiles each)."""
+    NTg = _cdiv(Wt, 8)
+    nUT = _cdiv(NTg, DECODE_MAX_TILES)
+    return dict(nTT=_cdiv(Ht, DECODE_BLOCK), nWC=_cdiv(W, DECODE_BLOCK), NTg=NTg,
+                nUT=nUT, tiles_per_ut=_cdiv(NTg, nUT))
+
+
+def decode_ranges(A: torch.Tensor, Bm: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The blocks of the decode that hold a nonzero weight, from A (Ht, H)
+    and Bm (W, Wt): for each target-row tile the source-row blocks
+    [klo, khi), and for each target-column block the source-column chunks
+    [wlo, whi). Every block outside them has only exact-zero weights."""
+    (Ht, H), (W, Wt) = A.shape, Bm.shape
+    t = decode_tiling(Ht, W, Wt)
+    D = DECODE_BLOCK
+    rows = F.pad(A != 0, (0, 0, 0, t["nTT"] * D - Ht)).view(t["nTT"], D, H).any(1)
+    klo, khi = _span(rows, D)
+    tiles = F.pad(Bm != 0, (0, t["NTg"] * 8 - Wt, 0, t["nWC"] * D - W))
+    tiles = tiles.view(t["nWC"], D, t["NTg"], 8).any(3).any(1)            # (nWC, NTg)
+    per_block = F.pad(tiles, (0, t["nUT"] * t["tiles_per_ut"] - t["NTg"]))
+    per_block = per_block.view(t["nWC"], t["nUT"], t["tiles_per_ut"]).any(2).T  # (nUT, nWC)
+    wlo, whi = _span(per_block, 1)
+    return dict(klo=klo, khi=khi, wlo=wlo, whi=whi)
+
+
+def _bm_fragments(Bm: torch.Tensor, nWC: int, NTg: int) -> torch.Tensor:
+    """Bm in the kernel's stage-2 fragment order, zero-padded:
+    (nWC chunks, NTg tiles, 8 steps, 32 lanes, 2); in chunk c, tile n,
+    step j, lane 4g + q holds Bm[w, 8n+g] and Bm[w+1, 8n+g] with
+    w = 64c + 8j + 2q. A chunk's run of tiles is one contiguous copy."""
+    W, Wt = Bm.shape
+    Bp = F.pad(Bm, (0, NTg * 8 - Wt, 0, nWC * DECODE_BLOCK - W))
+    v = Bp.view(nWC, 8, 4, 2, NTg, 8).permute(0, 4, 1, 5, 2, 3)  # (c, n, j, g, q, e)
+    return v.reshape(nWC, NTg, 8, 32, 2).contiguous()
+
+
+def _channel_first(f: torch.Tensor) -> torch.Tensor:
+    """f (B, H, W, C) as contiguous planes (B*C, H, Wq), Wq = W rounded up
+    to 8 (TMA's 16-byte row pitch), zero-padded. A channel-first-strided f
+    with W % 8 == 0 is read in place; a contiguous NHWC f is copied."""
+    B, H, W, C = f.shape
+    fc = f.permute(0, 3, 1, 2)
+    if W % 8 == 0:
+        return fc.contiguous().view(B * C, H, W)
+    out = f.new_zeros(B, C, H, _cdiv(W, 8) * 8)
+    out[..., :W] = fc
+    return out.view(B * C, H, -1)
+
+
 def decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize: bool = True) -> torch.Tensor:
     """Gridded SetConv decode: f (B, H, W, C) on the internal grid
-    x1g (H,) × x2g (W,) → (B, Ht, Wt, C) on xt1 (Ht,) × xt2 (Wt,).
-    Same contract as :func:`.setconv.setconv_decode_grid`."""
+    x1g (H,) × x2g (W,) → (B, Ht, Wt, C) float32 on xt1 (Ht,) × xt2 (Wt,).
+    Same contract as :func:`.setconv.setconv_decode_grid`; f may be float32
+    or bfloat16, contiguous NHWC or a channel-first tensor seen as NHWC."""
     if _device_of(f) == "cpu":
         return plain.setconv_decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize)
     _forward_only(x1g, x2g, f, xt1, xt2, lengthscale)
     dev = f.device
     B, H, W, C = f.shape
     Ht, Wt = xt1.shape[0], xt2.shape[0]
-    for name, t, shape in (("x1g", x1g, (H,)), ("x2g", x2g, (W,)), ("f", f, (B, H, W, C)),
+    for name, t, shape in (("x1g", x1g, (H,)), ("x2g", x2g, (W,)),
                            ("xt1", xt1, (Ht,)), ("xt2", xt2, (Wt,))):
         _check(name, t, shape, dev)
+    if f.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"f must be float32 or bfloat16, got {f.dtype}")
+    if not (f.is_contiguous() or f.permute(0, 3, 1, 2).is_contiguous()):
+        raise ValueError("f must be contiguous NHWC or a channel-first tensor seen as NHWC")
     # the RBF weights and their sums are built here, as the Pallas wrapper
     # builds them in XLA; the contractions and the epilogue are the kernel's
-    A = plain.rbf(xt1[:, None], x1g[None, :], lengthscale).contiguous()   # (Ht, H)
-    Bm = plain.rbf(x2g[:, None], xt2[None, :], lengthscale).contiguous()  # (W, Wt)
+    A = plain.rbf(xt1[:, None], x1g[None, :], lengthscale)   # (Ht, H)
+    Bm = plain.rbf(x2g[:, None], xt2[None, :], lengthscale)  # (W, Wt)
     sA = A.sum(-1) if normalize else None
     sB = Bm.sum(0) if normalize else None
+    t = decode_tiling(Ht, W, Wt)
+    Hp = _cdiv(H, DECODE_BLOCK) * DECODE_BLOCK
+    A3 = torch.stack(split_bf16x3(F.pad(A, (0, Hp - H, 0, t["nTT"] * DECODE_BLOCK - Ht))))
+    bfrag = _bm_fragments(Bm, t["nWC"], t["NTg"])
+    r = decode_ranges(A, Bm)
+    ranges = torch.cat([r[k] for k in ("klo", "khi", "wlo", "whi")]).int()
+    fcf = _channel_first(f)
+    out_cf = torch.empty((B * C, Ht, Wt), dtype=torch.float32, device=dev)
     out = torch.empty((B, Ht, Wt, C), dtype=torch.float32, device=dev)
-    _launch("setconv_decode_grid", A.data_ptr(), Bm.data_ptr(), f.data_ptr(),
+    _launch("setconv_decode_grid", A3.data_ptr(), fcf.data_ptr(),
+            int(f.dtype == torch.float32), bfrag.data_ptr(),
             None if sA is None else sA.data_ptr(), None if sB is None else sB.data_ptr(),
-            out.data_ptr(), B, H, W, C, Ht, Wt, device=dev)
+            ranges.data_ptr(), out_cf.data_ptr(), out.data_ptr(), B, C, H, fcf.shape[-1],
+            A3.shape[1], Hp, Ht, Wt, t["nTT"], t["nUT"], t["NTg"], t["tiles_per_ut"],
+            device=dev)
     decode_grid.launches += 1
     return out
 

@@ -47,6 +47,8 @@ def _points(rng, B, N, C, H, W, p_mask, dev):
     (2, 300, 2, 24, 24, 0.15, 0.1),   # several point chunks, ragged last one
     (1, 64, 7, 70, 130, 0.05, 0.0),   # widest channel count, ragged grid tiles
     (3, 512, 1, 200, 136, 0.005, 0.0),  # serving length-scale, sparse weights
+    (2, 70, 8, 40, 72, 0.1, 0.2),     # 8 value channels: more than one channel group
+    (1, 150, 12, 66, 64, 0.08, 0.1),  # 12 value channels, ragged last group
 ])
 def test_encode_offgrid_kernel(cuda, B, N, C, H, W, ls, p_mask):
     args = _points(np.random.default_rng(0), B, N, C, H, W, p_mask, cuda) + [ls]
@@ -63,25 +65,49 @@ def test_encode_offgrid_empty_point_set(cuda):
     assert got.shape == (2, 16, 16, 2) and not bool(got.any())
 
 
-@pytest.mark.parametrize("B,H,W,C,Ht,Wt,ls,normalize", [
-    (2, 32, 24, 4, 20, 12, 0.07, True),
-    (2, 32, 24, 4, 20, 12, 0.07, False),
-    (1, 64, 16, 2, 8, 8, 0.3, True),       # wide kernel: every source row counts
-    (1, 40, 70, 9, 17, 400, 0.05, True),   # ragged channel block, two target tiles
-    (2, 64, 64, 64, 30, 26, 0.03, True),   # serving channel count
-])
-def test_decode_grid_kernel(cuda, B, H, W, C, Ht, Wt, ls, normalize):
+def _grid(B, H, W, C, Ht, Wt, dtype, dev):
     rng = np.random.default_rng(1)
     x1g = np.linspace(0, 1, H).astype(np.float32)
     x2g = np.linspace(0, 1, W).astype(np.float32)
     f = rng.normal(size=(B, H, W, C)).astype(np.float32)
     xt1 = np.linspace(0.1, 0.9, Ht).astype(np.float32)
     xt2 = np.linspace(0.2, 0.8, Wt).astype(np.float32)
-    args = [torch.from_numpy(a).to(cuda) for a in (x1g, x2g, f, xt1, xt2)] + [ls]
+    x1g, x2g, f, xt1, xt2 = [torch.from_numpy(a).to(dev) for a in (x1g, x2g, f, xt1, xt2)]
+    return x1g, x2g, f.to(dtype), xt1, xt2
+
+
+# ℓ 0.005 is the serving length-scale (banded weights, zero blocks skipped);
+# ℓ 0.3 makes every weight nonzero (nothing skipped)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,Ht,Wt,ls,normalize", [
+    (2, 32, 24, 4, 20, 12, 0.07, True),
+    (2, 32, 24, 4, 20, 12, 0.07, False),
+    (1, 64, 16, 2, 8, 8, 0.3, True),       # wide kernel: every source row counts
+    (1, 40, 70, 9, 17, 400, 0.05, True),   # odd channel count, two target-column blocks
+    (2, 64, 64, 64, 30, 26, 0.03, True),   # serving channel count
+    (1, 100, 70, 9, 70, 260, 0.005, True),   # ragged H/W (W % 8 != 0), serving Wt
+    (1, 130, 136, 3, 40, 260, 0.3, False),   # wide ℓ, unnormalised
+    (1, 90, 200, 5, 81, 400, 0.3, True),     # wide ℓ, three target-column blocks
+    (1, 608, 608, 2, 64, 1040, 0.005, True),  # Wt >= 1024 at the serving source grid
+    (1, 608, 96, 3, 278, 260, 0.005, False),  # serving target rows, unnormalised
+])
+def test_decode_grid_kernel(cuda, B, H, W, C, Ht, Wt, ls, normalize, dtype):
+    args = list(_grid(B, H, W, C, Ht, Wt, dtype, cuda)) + [ls]
     before = setconv_cuda.decode_grid.launches
     got = setconv_cuda.decode_grid(*args, normalize=normalize)
     assert setconv_cuda.decode_grid.launches == before + 1
+    assert got.dtype == torch.float32
     _close(got, setconv.setconv_decode_grid(*args, normalize=normalize))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_grid_reads_channel_first_in_place(cuda, dtype):
+    """A channel-first tensor seen as NHWC gives the contiguous NHWC result."""
+    x1g, x2g, f, xt1, xt2 = _grid(2, 64, 48, 6, 30, 26, dtype, cuda)
+    f_cf = f.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    got = setconv_cuda.decode_grid(x1g, x2g, f_cf, xt1, xt2, 0.02)
+    want = setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, 0.02)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -96,3 +122,5 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     f = torch.randn(1, 16, 16, 4, device=cuda)
     with pytest.raises(ValueError):
         setconv_cuda.decode_grid(x1g, x2g, f.transpose(1, 2), x1g, x2g, 0.1)
+    with pytest.raises(TypeError):
+        setconv_cuda.decode_grid(x1g, x2g, f.double(), x1g, x2g, 0.1)

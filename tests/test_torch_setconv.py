@@ -118,6 +118,7 @@ def test_lengthscale_tensor_matches_float(rng):
     (2, 16, 2, 32, 48, 0.12, 0.25, dict(th=16, tw=16)),            # partial mask
     (1, 7, 1, 24, 40, 0.2, 0.0, dict(th=16, tw=16)),               # uneven tiles
     (2, 300, 2, 24, 24, 0.15, 0.1, dict(th=16, tw=16, nb=128)),    # N over blocks
+    (1, 40, 12, 24, 20, 0.1, 0.2, dict(th=16, tw=16)),             # 12 value channels
 ])
 def test_encode_wrapper_matches_pallas(rng, B, N, C, H, W, ls, p_mask, tiles):
     args = _points(rng, B, N, C, H, W, p_mask)
