@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's gridded serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -23,6 +23,25 @@ Phases (one line each; the first failure exits non-zero):
              the mean/std fields and that both kernels were launched.
 5. reference - a small ConvNP on the GPU (kernels) against the same weights
              on the CPU (plain versions), through ``predict_grid``.
+6. train-kernels - B1's length-scale backward against its plain version in
+             float64, at the training shape (8x512 stations onto 608x608)
+             and the serving shape (24x512), for a random upstream gradient,
+             a density-only one and one positive on every channel; twice
+             each (the result must not change from run to run). CUDA-event
+             times of the kernel and of the plain f32 autograd backward.
+7. train   - the flagship ConvNP's train step at ``perf/train_bench.py``'s
+             shape (batch 8: the serving contexts plus 512 station targets
+             with one aux channel; lr 5e-5): one warm-up step and 5 timed
+             steps (CUDA events and wall, their median tasks/s), then one
+             ``train_epoch`` over 5 batches timed as a whole (tasks over the
+             window's wall time, synchronise to synchronise, host batching
+             and uploads included); losses, peak memory; checks finite
+             losses, moved parameters, and B1's forward and backward
+             launched on every step.
+8. train-reference - one train step of a small ConvNP on the GPU (kernels)
+             and on the CPU (plain versions) from the same weights and
+             batch: the loss, every parameter's gradient, and the update
+             where Adam's first step is well conditioned.
 
 The last two lines are a JSON object of per-kernel results and the
 ``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy
@@ -52,10 +71,32 @@ RTOL = 1e-4
 ATOL_FRAC = 1e-5
 # the small GPU-vs-CPU forward also differs in the convs' summation order
 REF_RTOL, REF_ATOL_FRAC = 1e-4, 1e-4
+N_TRAIN_TASKS = 8  # perf/train_bench.py's batch
+N_TARGETS = 512
+TRAIN_LR = 5e-5
+TRAIN_STEPS = 5  # timed, after one warm-up step
+# B1's backward against its float64 plain version: dL/dl is one sum over
+# every cell whose summands cancel, so its error is judged against both the
+# value and the absolute sum of the summands, a few f32 roundings each:
+# |got - ref| <= GRAD_RTOL * |ref| + GRAD_SUM_TOL * sum|terms|
+GRAD_RTOL, GRAD_SUM_TOL = 1e-5, 1e-7
+# the small train step on the GPU against the CPU, f32 on both with the
+# summation orders of cuDNN and oneDNN (as tests/test_torch_train.py holds the
+# port against JAX): the loss to rtol 1e-4; each gradient to rtol 1e-4 with
+# an atol of 1e-4 times its largest magnitude. Adam's first step is
+# g/(|g| + 1e-8) per element, so a gradient near 1e-8 that the tolerance
+# lets differ moves its update by O(1). The update (p_new - p)/lr is held
+# within 2e-3 where |g| >= 1e-6 and |g| >= 10x its tolerance: there the step
+# moves by at most (1e-8/|g|)·(|dg|/|g|)/(1 - 0.1)^2 <= 1.3e-3.
+TRAIN_REF_RTOL, TRAIN_REF_ATOL_FRAC, TRAIN_REF_STEP_ATOL = 1e-4, 1e-4, 2e-3
+TRAIN_REF_STEP_MIN_GRAD = 1e-6
 
 KERNELS = {
     "encode_offgrid": ("deepsensornz_tpu_torch/csrc/setconv_encode.cu",
                        "deepsensornz_tpu/ops/setconv_pallas.py:102"),
+    # the l-gradient of the XLA encode the JAX trainer differentiates
+    "encode_offgrid_grad": ("deepsensornz_tpu_torch/csrc/setconv_encode_grad.cu",
+                            "deepsensornz_tpu/ops/setconv.py:42"),
     "decode_grid": ("deepsensornz_tpu_torch/csrc/setconv_decode.cu",
                     "deepsensornz_tpu/ops/setconv_pallas.py:204"),
 }
@@ -183,6 +224,25 @@ def cycle_task(seed: int, n_tasks: int, density: float, base_hw=(139, 130),
         yt_aux=torch.zeros(n_tasks, 8, 1), x1g=t(x1g), x2g=t(x2g))
 
 
+def train_task(seed: int, n_tasks: int, density: float, base_hw=(139, 130),
+               aux_hw=TARGET_HW, n_stations: int = N_STATIONS, n_targets: int = N_TARGETS):
+    """Training inputs (``perf/train_bench.py``'s shape): the serving
+    cycle's context sets plus ``n_targets`` station targets per task, each
+    with one aux channel."""
+    import dataclasses
+
+    import torch
+
+    rng = np.random.default_rng(seed + 1000)
+    t = torch.from_numpy
+    task = cycle_task(seed, n_tasks, density, base_hw, aux_hw, n_stations)
+    return dataclasses.replace(
+        task, xt=t(rng.random((n_tasks, n_targets, 2)).astype(np.float32)),
+        yt=t(rng.normal(size=(n_tasks, n_targets, 1)).astype(np.float32)),
+        yt_mask=torch.ones(n_tasks, n_targets),
+        yt_aux=t(rng.normal(size=(n_tasks, n_targets, 1)).astype(np.float32)))
+
+
 def build_model(cfg, task, seed: int, device):
     import torch
 
@@ -205,6 +265,179 @@ def check_prediction(pred, dem, n_tasks: int) -> None:
             raise AssertionError(f"{key} not NaN on sea")
     if not (pred["std"].data[:, ~sea] > 0).all():
         raise AssertionError("std not positive on land")
+
+
+def train_kernels(dev, model, setconv, setconv_cuda) -> dict:
+    """Phase 6: B1's backward against its plain version in float64 at the
+    training and serving shapes; returns the training shape's numbers."""
+    import torch
+
+    ls = model.lengthscale("ls_points_0").detach()
+    out = {}
+    for label, n_tasks in (("train", N_TRAIN_TASKS), ("serve", N_TASKS)):
+        task = cycle_task(10 + n_tasks, n_tasks, model.cfg.internal_density).to(dev)
+        p = task.points[0]
+        pts = (task.x1g, task.x2g, p.x, p.y, p.mask)
+        gen = torch.Generator(device=dev).manual_seed(n_tasks)
+        shape = (n_tasks, task.x1g.shape[0], task.x2g.shape[0], p.y.shape[-1] + 1)
+        g_random = torch.randn(shape, generator=gen, device=dev)
+        # the density channel alone: summands of one sign, nothing cancels
+        g_density = torch.zeros(shape, device=dev)
+        g_density[..., 0] = 0.5 + torch.rand(shape[:3], generator=gen, device=dev)
+        # every channel positive: the value channels' terms without the
+        # random sign's cancellation across cells
+        g_positive = 0.5 + torch.rand(shape, generator=gen, device=dev)
+        with torch.no_grad():  # the forward's output, as the backward gets it
+            fwd = setconv_cuda.encode_offgrid(*pts, ls)
+        max_err = 0.0
+        for gname, g in (("random", g_random), ("density", g_density),
+                         ("positive", g_positive)):
+            got = setconv_cuda.encode_offgrid_grad(*pts, ls, g, fwd)
+            again = setconv_cuda.encode_offgrid_grad(*pts, ls, g, fwd)
+            terms = setconv.encode_offgrid_grad_ls_terms(*pts, ls.double(), g.double())
+            ref = float(sum(t.sum() for t in terms))
+            bound = GRAD_RTOL * abs(ref) + GRAD_SUM_TOL * float(sum(t.abs().sum() for t in terms))
+            err = abs(float(got) - ref)
+            max_err = max(max_err, err)
+            say("train-kernels", f"{label} {shape} g {gname}: got {float(got):.9g} float64 "
+                f"{ref:.9g}; abs err {err:.3e}, rel err {err / abs(ref):.3e}, bound "
+                f"{GRAD_RTOL} * |ref| + {GRAD_SUM_TOL} * sum|terms| = {bound:.3e}; "
+                f"deterministic {bool(torch.equal(got, again))}")
+            if err > bound:
+                raise AssertionError(f"encode_offgrid_grad disagrees with its plain version "
+                                     f"({label}, g {gname})")
+            if not torch.equal(got, again):
+                raise AssertionError("encode_offgrid_grad changed from run to run")
+        ms = cuda_ms(lambda: setconv_cuda.encode_offgrid_grad(*pts, ls, g_random, fwd))
+        ls_req = ls.clone().requires_grad_(True)
+        enc = setconv.setconv_encode_offgrid(*pts, ls_req)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(enc, ls_req, g_random, retain_graph=True))
+        say("train-kernels", f"{label}: kernel {ms:.3f} ms, plain f32 autograd backward "
+            f"{plain_ms:.3f} ms (CUDA events, median of {TIMING_REPS})")
+        if label == "train":
+            out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+        else:
+            out["max_abs_err"] = max(out["max_abs_err"], max_err)
+        del enc, fwd, terms, task
+    return out
+
+
+def train_flagship(dev, model, cfg, setconv_cuda) -> dict:
+    """Phase 7: the flagship train step at perf/train_bench.py's shape;
+    returns the launch counts of the run."""
+    import torch
+
+    from deepsensornz_tpu_torch.train.trainer import init_state, make_train_step, train_epoch
+
+    task = train_task(20, N_TRAIN_TASKS, cfg.internal_density).to(dev)
+    epoch_tasks = train_task(21, N_TRAIN_TASKS * TRAIN_STEPS, cfg.internal_density)  # host
+    state = init_state(model)
+    p0 = {k: v.clone() for k, v in state.params.items()}
+    step = make_train_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    setconv_cuda.reset_launch_counts()
+    losses, step_ms, step_s = [], [], []
+    for i in range(1 + TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, loss = step(state, task, TRAIN_LR)
+        end.record()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        say("train", f"step {i}{' (warm-up)' if i == 0 else ''}: {step_ms[-1]:.1f} ms "
+            f"(CUDA events), {step_s[-1]:.4f} s wall; loss {losses[-1]:.6f}")
+    say("train", f"median of {TRAIN_STEPS} steps {float(np.median(step_ms[1:])):.1f} ms (CUDA "
+        f"events), {float(np.median(step_s[1:])):.4f} s wall; "
+        f"{N_TRAIN_TASKS / float(np.median(step_s[1:])):.2f} tasks/s at batch {N_TRAIN_TASKS} "
+        f"(median step)")
+    # the window: one epoch as a user runs it, synchronise to synchronise
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, epoch_losses = train_epoch(model, state, epoch_tasks, batch_size=N_TRAIN_TASKS,
+                                      lr=TRAIN_LR, step_fn=step)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    losses += epoch_losses
+    n_steps = 1 + TRAIN_STEPS + len(epoch_losses)
+    counts = setconv_cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = sum(not torch.equal(state.params[k], p0[k]) for k in p0)
+    say("train", f"train_epoch window: {epoch_tasks.batch_size} tasks in {len(epoch_losses)} "
+        f"batches, {window_s:.4f} s wall, {epoch_tasks.batch_size / window_s:.2f} tasks/s; "
+        f"losses {', '.join(f'{v:.6f}' for v in epoch_losses)}")
+    say("train", f"peak memory {peak / 2**30:.2f} GiB; {moved} of {len(p0)} parameters moved "
+        f"in {n_steps} steps; launches {counts}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if moved == 0:
+        raise AssertionError("the train steps changed no parameter")
+    for name in ("encode_offgrid", "encode_offgrid_grad"):
+        if counts[name] < n_steps:
+            raise AssertionError(f"kernel {name} launched {counts[name]} times in "
+                                 f"{n_steps} train steps")
+    return counts
+
+
+def train_reference(dev, setconv_cuda) -> None:
+    """Phase 8: a small train step on the GPU (kernels) against the CPU
+    (plain versions) from the same weights and batch."""
+    import torch
+
+    from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+    from deepsensornz_tpu_torch.train.trainer import init_state, make_train_step
+
+    small = ConvNPConfig(unet_channels=(8, 8), likelihood="gnp", internal_density=40,
+                         rank=4, decoder_channels=8, mlp_hidden=8, compute_dtype="float32")
+    task = train_task(5, 3, small.internal_density, base_hw=(12, 11), aux_hw=(30, 28),
+                      n_stations=40, n_targets=20)
+    lr = 1e-3
+    setconv_cuda.reset_launch_counts()
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        m = build_model(small, task, seed=2, device=d)
+        td = task.to(d)
+        names = [k for k, _ in m.named_parameters()]
+        loss = m.loss(td)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        state = init_state(m)
+        state2, step_loss = make_train_step(m, weight_decay=1e-2)(state, td, lr)
+        res[d.type] = (float(loss.detach()), float(step_loss),
+                       {k: g.cpu() for k, g in zip(names, grads)},
+                       {k: ((state2.params[k] - state.params[k]) / lr).cpu() for k in names})
+    (gl, gsl, gg, gu), (cl, csl, cg, cu) = res["cuda"], res["cpu"]
+    worst = {"grad": 0.0, "update": 0.0}
+    bad = []
+    n_held = n_all = 0
+    for k in cg:
+        err = (gg[k] - cg[k]).abs()
+        tol = TRAIN_REF_RTOL * cg[k].abs() + TRAIN_REF_ATOL_FRAC * float(cg[k].abs().max())
+        worst["grad"] = max(worst["grad"], float((err / (tol + 1e-30)).max()))
+        if bool((err > tol).any()):
+            bad.append(f"grad {k}")
+        held = (cg[k].abs() >= TRAIN_REF_STEP_MIN_GRAD) & (cg[k].abs() >= 10.0 * tol)
+        n_held += int(held.sum())
+        n_all += held.numel()
+        uerr = float(torch.where(held, (gu[k] - cu[k]).abs(), 0.0).max())
+        worst["update"] = max(worst["update"], uerr)
+        if uerr > TRAIN_REF_STEP_ATOL:
+            bad.append(f"update {k}")
+    counts = setconv_cuda.launch_counts()
+    say("train-reference", f"loss GPU {gl:.7f} CPU {cl:.7f}; step loss GPU {gsl:.7f} CPU "
+        f"{csl:.7f}; {len(cg)} gradients, worst err/tol {worst['grad']:.3f}; worst "
+        f"update err/lr {worst['update']:.3e} (bound {TRAIN_REF_STEP_ATOL}) over {n_held} of "
+        f"{n_all} elements; GPU launches {counts}")
+    for a, b in ((gl, cl), (gsl, csl)):
+        if not abs(a - b) <= TRAIN_REF_RTOL * abs(b):
+            raise AssertionError(f"small-model loss on the GPU {a} disagrees with the CPU {b}")
+    if bad:
+        raise AssertionError(f"small-model train step on the GPU disagrees with the CPU: {bad}")
+    if counts["encode_offgrid_grad"] == 0:
+        raise AssertionError("the GPU train step did not launch encode_offgrid_grad")
 
 
 def main() -> int:
@@ -319,13 +552,13 @@ def main() -> int:
         say("serve", f"request {i}: {request_ms[-1]:.1f} ms (CUDA events), "
             f"{request_s[-1]:.3f} s wall; mean {np.nanmean(pred['mean'].data[:, land]):.4f} "
             f"std {np.nanmean(pred['std'].data[:, land]):.4f}")
-    counts = setconv_cuda.launch_counts()
+    serve_counts = setconv_cuda.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     say("serve", f"p50 request {float(np.median(request_ms)):.1f} ms (CUDA events), "
         f"{float(np.median(request_s)):.3f} s wall; peak memory {peak / 2**30:.2f} GiB; "
-        f"launches {counts}")
-    for name, n in counts.items():
-        if n == 0:
+        f"launches {serve_counts}")
+    for name in ("encode_offgrid", "decode_grid"):
+        if serve_counts[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the serving path")
 
     # -- 5. a small forward on the GPU against the CPU ---------------------------------
@@ -347,9 +580,15 @@ def main() -> int:
         if not cmp["ok"]:
             raise AssertionError(f"small-model {key} on the GPU disagrees with the CPU")
 
+    results["encode_offgrid_grad"] = train_kernels(dev, model, setconv, setconv_cuda)
+    train_counts = train_flagship(dev, model, cfg, setconv_cuda)
+    train_reference(dev, setconv_cuda)
+
+    launches = {name: serve_counts[name] + train_counts[name] for name in KERNELS}
+    say("launches", f"serve {serve_counts}, train {train_counts}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": counts[name], **results[name]}
+         "replaces": KERNELS[name][1], "launches": launches[name], **results[name]}
         for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

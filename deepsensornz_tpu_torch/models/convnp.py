@@ -28,6 +28,7 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepsensornz_tpu_torch.models.likelihoods import get_likelihood
 from deepsensornz_tpu_torch.models.unet import UNet, lecun_normal_
@@ -40,10 +41,10 @@ from deepsensornz_tpu_torch.task.task import TaskBatch
 @dataclasses.dataclass(frozen=True)
 class ConvNPConfig:
     """Static model hyperparameters; every field of the JAX config, so a JAX
-    ``metadata.json`` config loads. Fields that only steer TPU lowerings or
-    training (``downsample``, ``lane_pack``, ``use_pallas``, ``remat``,
-    ``remat_policy``, ``mean_anchor``) are accepted and do not change the
-    serving forward."""
+    ``metadata.json`` config loads. Fields that only steer TPU lowerings
+    (``downsample``, ``lane_pack``, ``use_pallas``) and ``remat_policy``
+    are accepted and change nothing: ``remat`` recomputes the whole U-Net
+    in the backward whatever the policy (per-level saving waits)."""
 
     unet_channels: tuple = (64, 64, 64, 64)
     likelihood: str = "gnp"
@@ -90,6 +91,13 @@ class ConvNPConfig:
         kw = {k: (tuple(v) if isinstance(v, list) and k != "init_lengthscale" else v)
               for k, v in d.items() if k in names}
         return cls(**kw)
+
+    def anchor_weight(self) -> float:
+        """Weight of the mean-anchor MSE in :meth:`ConvNP.loss`: explicit, or
+        1.0 for the joint (gnp) head and 0.0 for the per-point heads."""
+        if self.mean_anchor is not None:
+            return float(self.mean_anchor)
+        return 1.0 if self.likelihood in ("gnp", "lowrank") else 0.0
 
     def make_likelihood(self):
         kw = {"rank": self.rank} if self.likelihood in ("gnp", "lowrank") else {}
@@ -191,7 +199,14 @@ class ConvNP(nn.Module):
         in the U-Net's compute dtype: the gridded decode kernel reads bf16
         features as they are (their f32 widening holds the same values)."""
         h = self.encode(task).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
-        return self.unet.raw(h).permute(0, 2, 3, 1)
+        if self.cfg.remat and torch.is_grad_enabled():
+            # the backward recomputes the U-Net instead of keeping its
+            # activations; the parameters it reads are the module's own, so
+            # the recomputation sees the values the forward saw
+            f = checkpoint(self.unet.raw, h, use_reentrant=False)
+        else:
+            f = self.unet.raw(h)
+        return f.permute(0, 2, 3, 1)
 
     def forward(self, task: TaskBatch, target_grid: Optional[tuple] = None) -> torch.Tensor:
         cfg = self.cfg
@@ -235,6 +250,23 @@ class ConvNP(nn.Module):
         if cfg.sigmoid_output:
             raw = _sigmoid_squash(raw, cfg.dim_yt)
         return raw
+
+    def loss(self, task: TaskBatch, anchor_scale=1.0) -> torch.Tensor:
+        """Normalised NLL at ``task.xt`` plus ``anchor_weight() · anchor_scale``
+        times the masked MSE of the predictive mean (a 0-d tensor).
+        ``anchor_scale`` may change from call to call (an anchor decayed
+        over epochs)."""
+        raw = self(task)
+        lik = self.cfg.make_likelihood()
+        out = lik.nll(raw, task.yt, task.yt_mask)
+        anchor = self.cfg.anchor_weight()
+        if anchor > 0.0:
+            mean, _ = lik.mean_std(raw)
+            m = task.yt_mask.float()[..., None]
+            se = torch.square(mean - task.yt.float()) * m
+            mse = se.sum() / torch.clamp(m.sum() * mean.shape[-1], min=1.0)
+            out = out + anchor * anchor_scale * mse
+        return out
 
 
 def _sigmoid_squash(raw: torch.Tensor, dy: int) -> torch.Tensor:

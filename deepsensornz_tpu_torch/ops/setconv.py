@@ -12,9 +12,9 @@ are divided by ``density + 1e-8``, and the gridded/off-grid decodes are
 normalised by the separable sum of weights.
 
 Layouts are the JAX ones: NHWC grids ``(B, H, W, C)``. The point-set
-encode and the gridded decode have hand-written CUDA kernels
-(:mod:`.setconv_cuda`); these functions are their plain versions, used on
-the CPU and as the kernels' reference on the card.
+encode, its length-scale gradient and the gridded decode have hand-written
+CUDA kernels (:mod:`.setconv_cuda`); these functions are their plain
+versions, used on the CPU and as the kernels' reference on the card.
 """
 
 from __future__ import annotations
@@ -53,6 +53,42 @@ def setconv_encode_offgrid(x1g, x2g, x, y, mask, lengthscale) -> torch.Tensor:
     w2 = rbf(x2g[None, None, :], x[:, :, None, 1], lengthscale)  # (B, N, W)
     t = w2[..., None] * _augment(y, mask)[:, :, None, :]          # (B, N, W, C+1)
     return _density_normalise(torch.einsum("bhn,bnwc->bhwc", w1, t))
+
+
+def encode_offgrid_grad_ls_terms(x1g, x2g, x, y, mask, lengthscale,
+                                 grad_out) -> tuple[torch.Tensor, ...]:
+    """The summands of dL/dℓ for :func:`setconv_encode_offgrid`, given
+    ``grad_out`` = dL/d(output) (B, H, W, C+1), computed in its dtype.
+
+    With w = exp(-(d1²+d2²)/2ℓ²) and yaug = [mask, y·mask]:
+    S_c = Σ_n w·yaug_c (the forward's sums), T_c = Σ_n w·(d1²+d2²)·yaug_c/ℓ³
+    (= dS_c/dℓ) and D = S_0 + 1e-8, the three terms g_0·T_0 (B, H, W, 1),
+    g_c·T_c/D and −g_c·S_c·T_0/D² (B, H, W, C). Their sum is dL/dℓ; the
+    sum of their absolute values is the scale its rounding error is judged
+    by. T is separable like S: (W1∘D1²)·(W2∘yaug) + W1·(W2∘D2²∘yaug)."""
+    dt = grad_out.dtype
+    ls = torch.as_tensor(lengthscale, dtype=dt, device=x.device)
+    d1 = torch.square((x1g.to(dt)[None, :, None] - x[:, None, :, 0].to(dt)) / ls)  # (B, H, N)
+    d2 = torch.square((x2g.to(dt)[None, None, :] - x[:, :, None, 1].to(dt)) / ls)  # (B, N, W)
+    w1, w2 = torch.exp(-0.5 * d1), torch.exp(-0.5 * d2)
+    m = mask.to(dt)[..., None]
+    t = w2[..., None] * torch.cat([m, y.to(dt) * m], dim=-1)[:, :, None, :]  # (B, N, W, C+1)
+    S = torch.einsum("bhn,bnwc->bhwc", w1, t)
+    T = (torch.einsum("bhn,bnwc->bhwc", w1 * d1, t)
+         + torch.einsum("bhn,bnwc->bhwc", w1, t * d2[..., None])) / ls
+    D = S[..., :1] + DENSITY_EPS
+    g = grad_out
+    return (g[..., :1] * T[..., :1], g[..., 1:] * T[..., 1:] / D,
+            -g[..., 1:] * S[..., 1:] * T[..., :1] / (D * D))
+
+
+def setconv_encode_offgrid_grad_ls(x1g, x2g, x, y, mask, lengthscale, grad_out) -> torch.Tensor:
+    """dL/dℓ of :func:`setconv_encode_offgrid` from the closed form, a
+    0-d tensor in ``grad_out``'s dtype: the plain version of the encode's
+    backward kernel (``csrc/setconv_encode_grad.cu``). ℓ is the only input
+    it differentiates."""
+    return sum(t.sum() for t in encode_offgrid_grad_ls_terms(
+        x1g, x2g, x, y, mask, lengthscale, grad_out))
 
 
 def setconv_encode_grid(x1g, x2g, xc1, xc2, y, lengthscale, mask=None) -> torch.Tensor:

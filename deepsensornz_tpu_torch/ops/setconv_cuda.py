@@ -1,9 +1,12 @@
-"""Hand-written CUDA kernels for the two SetConvs on the serving path.
+"""Hand-written CUDA kernels for the SetConvs on the serving and training paths.
 
 Counterpart of ``deepsensornz_tpu/ops/setconv_pallas.py``:
 
 - :func:`encode_offgrid` (``csrc/setconv_encode.cu``) scatters a ragged
   point set onto the internal grid;
+- :func:`encode_offgrid_grad` (``csrc/setconv_encode_grad.cu``) is its
+  gradient with respect to the length-scale, the encode's backward when
+  the model trains;
 - :func:`decode_grid` (``csrc/setconv_decode.cu``) interpolates the U-Net
   output onto a regular target grid.
 
@@ -12,10 +15,12 @@ wrapper raises), a CPU tensor takes the plain version from :mod:`.setconv`.
 There is no fallback from one to the other. Each wrapper counts its kernel
 launches in ``<wrapper>.launches`` so a run can show which path it took.
 
-The kernels are forward only: a call that autograd would have to
-differentiate raises. They run on the current CUDA stream, allocate
-nothing themselves (the wrapper allocates the output) and do not
-synchronise.
+The encode is differentiable in its length-scale only (the parameter the
+model learns through it); the gridded decode is forward only, since no
+training path runs it. A call that autograd would have to differentiate
+otherwise raises. The kernels run on the current CUDA stream, allocate
+nothing themselves (the wrapper allocates outputs and partial sums) and do
+not synchronise.
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ import torch.nn.functional as F
 
 from deepsensornz_tpu_torch.ops import setconv as plain
 
+# csrc/setconv_encode_grad.cu: grid rows and columns per block (one partial
+# sum each)
+ENCODE_TILE = 64
 # csrc/setconv_decode.cu: target rows per block, source rows per k-block and
 # source columns per chunk (all 64); target-column tiles of 8 per block
 DECODE_BLOCK = 64
@@ -45,7 +53,7 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> No
 def _forward_only(*tensors) -> None:
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise RuntimeError("the SetConv CUDA kernels are forward only; run under "
+        raise RuntimeError("this SetConv CUDA kernel is forward only; run it under "
                            "torch.no_grad() or torch.inference_mode()")
 
 
@@ -71,19 +79,22 @@ def _device_of(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def encode_offgrid(x1g, x2g, x, y, mask, lengthscale) -> torch.Tensor:
-    """Point-set SetConv encode: x1g (H,), x2g (W,), x (B, N, 2),
-    y (B, N, C), mask (B, N) → (B, H, W, C+1), density channel first.
-    Same contract as :func:`.setconv.setconv_encode_offgrid`."""
-    if _device_of(x) == "cpu":
-        return plain.setconv_encode_offgrid(x1g, x2g, x, y, mask, lengthscale)
-    _forward_only(x1g, x2g, x, y, mask, lengthscale)
-    dev = x.device
+def _check_points(x1g, x2g, x, y, mask) -> tuple[int, int, int, int, int]:
     B, N, C = y.shape
     H, W = x1g.shape[0], x2g.shape[0]
     for name, t, shape in (("x1g", x1g, (H,)), ("x2g", x2g, (W,)), ("x", x, (B, N, 2)),
                            ("y", y, (B, N, C)), ("mask", mask, (B, N))):
-        _check(name, t, shape, dev)
+        _check(name, t, shape, x.device)
+    return B, N, C, H, W
+
+
+def _encode(x1g, x2g, x, y, mask, lengthscale) -> torch.Tensor:
+    """The forward without autograd: the plain version on the CPU, the
+    kernel on a CUDA device."""
+    if _device_of(x) == "cpu":
+        return plain.setconv_encode_offgrid(x1g, x2g, x, y, mask, lengthscale)
+    dev = x.device
+    B, N, C, H, W = _check_points(x1g, x2g, x, y, mask)
     out = torch.empty((B, H, W, C + 1), dtype=torch.float32, device=dev)
     if N == 0:  # empty point set: zero density, zero values
         return out.zero_()
@@ -95,7 +106,75 @@ def encode_offgrid(x1g, x2g, x, y, mask, lengthscale) -> torch.Tensor:
     return out
 
 
+class _EncodeOffgrid(torch.autograd.Function):
+    """The encode with a gradient for the length-scale: the forward kernel,
+    and :func:`encode_offgrid_grad` as the backward."""
+
+    @staticmethod
+    def forward(ctx, x1g, x2g, x, y, mask, lengthscale):
+        out = _encode(x1g, x2g, x, y, mask, lengthscale)
+        ctx.save_for_backward(x1g, x2g, x, y, mask, lengthscale, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x1g, x2g, x, y, mask, ls, out = ctx.saved_tensors
+        g = encode_offgrid_grad(x1g, x2g, x, y, mask, ls, grad_out.contiguous(), out)
+        return None, None, None, None, None, g.to(ls.dtype).reshape(ls.shape)
+
+
+def encode_offgrid(x1g, x2g, x, y, mask, lengthscale) -> torch.Tensor:
+    """Point-set SetConv encode: x1g (H,), x2g (W,), x (B, N, 2),
+    y (B, N, C), mask (B, N) → (B, H, W, C+1), density channel first.
+    Same contract as :func:`.setconv.setconv_encode_offgrid`.
+
+    Differentiable in the length-scale only, on either device: a
+    ``lengthscale`` tensor that requires grad makes the backward run
+    :func:`encode_offgrid_grad`; any other input that requires grad
+    raises."""
+    _device_of(x)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x1g, x2g, x, y, mask)):
+        raise RuntimeError("the SetConv encode differentiates the length-scale only; "
+                           "x1g, x2g, x, y and mask must not require grad")
+    if torch.is_grad_enabled() and isinstance(lengthscale, torch.Tensor) \
+            and lengthscale.requires_grad:
+        return _EncodeOffgrid.apply(x1g, x2g, x, y, mask, lengthscale)
+    return _encode(x1g, x2g, x, y, mask, lengthscale)
+
+
 encode_offgrid.launches = 0
+
+
+def encode_offgrid_grad(x1g, x2g, x, y, mask, lengthscale, grad_out, out) -> torch.Tensor:
+    """dL/dℓ of :func:`encode_offgrid` given ``grad_out`` = dL/d(output)
+    (B, H, W, C+1): a 0-d float32 tensor. Same contract as
+    :func:`.setconv.setconv_encode_offgrid_grad_ls`, plus ``out``, the
+    forward's output on these inputs, from which the kernel reads the
+    forward's sums (the plain version on the CPU forms them itself). On a
+    CUDA device the kernel writes one float64 partial sum per 64×64 cell
+    tile and the partials are summed here in a fixed order, so the result
+    is the same from run to run."""
+    if _device_of(x) == "cpu":
+        return plain.setconv_encode_offgrid_grad_ls(x1g, x2g, x, y, mask, lengthscale, grad_out)
+    _forward_only(x1g, x2g, x, y, mask, lengthscale, grad_out, out)
+    dev = x.device
+    B, N, C, H, W = _check_points(x1g, x2g, x, y, mask)
+    _check("grad_out", grad_out, (B, H, W, C + 1), dev)
+    if N == 0 or B * H * W == 0:  # the output does not depend on ℓ
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    _check("out", out, (B, H, W, C + 1), dev)
+    ls = _lengthscale(lengthscale, dev)
+    partials = torch.empty((B, _cdiv(H, ENCODE_TILE), _cdiv(W, ENCODE_TILE)),
+                           dtype=torch.float64, device=dev)
+    _launch("setconv_encode_offgrid_grad", x1g.data_ptr(), x2g.data_ptr(), x.data_ptr(),
+            y.data_ptr(), mask.data_ptr(), ls.data_ptr(), out.data_ptr(),
+            grad_out.data_ptr(), partials.data_ptr(), B, N, H, W, C + 1, device=dev)
+    encode_offgrid_grad.launches += 1
+    # the kernel's terms carry (d/ℓ)², so the 1/ℓ³ of dS/dℓ leaves 1/ℓ here
+    return (partials.sum() / ls[0].double()).float()
+
+
+encode_offgrid_grad.launches = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -219,7 +298,7 @@ def decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize: bool = True) -> t
 
 decode_grid.launches = 0
 
-KERNELS = (encode_offgrid, decode_grid)
+KERNELS = (encode_offgrid, encode_offgrid_grad, decode_grid)
 
 
 def reset_launch_counts() -> None:

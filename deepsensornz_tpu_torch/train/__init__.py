@@ -1,1 +1,1 @@
-"""Parameter import from JAX checkpoints."""
+"""Training: the AdamW trainer, checkpoints and JAX parameter conversion."""

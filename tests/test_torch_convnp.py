@@ -95,7 +95,9 @@ def test_unet_bf16_close_to_flax(rng):
 
 
 @pytest.mark.parametrize("name,dim_y,kw", [("gnp", 1, {"rank": 4}), ("gnp", 2, {"rank": 3}),
-                                           ("cnp", 1, {}), ("cnp", 2, {})])
+                                           ("cnp", 1, {}), ("cnp", 2, {}),
+                                           ("bernoulli-gamma", 1, {}),
+                                           ("cnp-spikes-beta", 1, {})])
 def test_heads_match_jax(rng, name, dim_y, kw):
     jl = jlik.get_likelihood(name, dim_y=dim_y, **kw)
     tl = tlik.get_likelihood(name, dim_y=dim_y, **kw)
@@ -107,12 +109,6 @@ def test_heads_match_jax(rng, name, dim_y, kw):
         _close(tr.numpy(), np.asarray(jr))
         for g, w in zip(tl.mean_std(tr), jl.mean_std(jr)):
             _close(g.numpy(), np.asarray(w))
-
-
-@pytest.mark.parametrize("name", ["bernoulli-gamma", "cnp-spikes-beta"])
-def test_unported_heads_raise(name):
-    with pytest.raises(NotImplementedError):
-        tlik.get_likelihood(name)
 
 
 # -- (d) ConvNP -------------------------------------------------------------------------

@@ -65,6 +65,63 @@ def test_encode_offgrid_empty_point_set(cuda):
     assert got.shape == (2, 16, 16, 2) and not bool(got.any())
 
 
+# B1's backward against its plain version in float64: dL/dℓ is one sum over
+# every cell whose summands cancel, so its error is judged against both the
+# value and the summands, a few f32 roundings each:
+# |got - ref| <= 1e-5·|ref| + 1e-7·Σ|summands|
+@pytest.mark.parametrize("B,N,C,H,W,ls,p_mask", [
+    (2, 16, 2, 32, 48, 0.12, 0.25),   # partial mask
+    (1, 7, 1, 24, 40, 0.2, 0.0),      # tiles larger than the grid
+    (2, 300, 2, 24, 24, 0.15, 0.1),   # several point chunks, ragged last one
+    (1, 64, 7, 70, 130, 0.05, 0.0),   # many channels, ragged grid tiles
+    (3, 512, 1, 200, 136, 0.005, 0.0),  # serving length-scale, sparse weights
+])
+@pytest.mark.parametrize("upstream", ["random", "density", "positive"])
+def test_encode_offgrid_grad_kernel(cuda, B, N, C, H, W, ls, p_mask, upstream):
+    x1g, x2g, x, y, mask = _points(np.random.default_rng(0), B, N, C, H, W, p_mask, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g = torch.randn(B, H, W, C + 1, generator=gen, device=cuda)
+    if upstream == "density":  # one sign, nothing cancels
+        g = torch.zeros_like(g)
+        g[..., 0] = 0.5 + torch.rand(B, H, W, generator=gen, device=cuda)
+    elif upstream == "positive":  # the value channels without the random sign
+        g = 0.5 + torch.rand(B, H, W, C + 1, generator=gen, device=cuda)
+    args = (x1g, x2g, x, y, mask)
+    with torch.no_grad():
+        fwd = setconv_cuda.encode_offgrid(*args, ls)
+    before = setconv_cuda.encode_offgrid_grad.launches
+    got = setconv_cuda.encode_offgrid_grad(*args, ls, g, fwd)
+    again = setconv_cuda.encode_offgrid_grad(*args, ls, g, fwd)
+    assert setconv_cuda.encode_offgrid_grad.launches == before + 2
+    assert got.shape == () and torch.equal(got, again)  # the same from run to run
+    terms = setconv.encode_offgrid_grad_ls_terms(*args, torch.tensor(ls, dtype=torch.float64),
+                                                 g.double())
+    ref = float(sum(t.sum() for t in terms))
+    bound = 1e-5 * abs(ref) + 1e-7 * float(sum(t.abs().sum() for t in terms))
+    assert abs(float(got) - ref) <= bound, (float(got), ref, bound)
+
+
+def test_encode_offgrid_grad_through_autograd(cuda):
+    """The autograd function: the forward kernel, then the backward kernel
+    for ℓ, against autograd of the plain forward (f32) on the same inputs."""
+    x1g, x2g, x, y, mask = _points(np.random.default_rng(0), 2, 300, 2, 70, 130, 0.1, cuda)
+    g = torch.randn(2, 70, 130, 3, device=cuda)
+    grads = []
+    for fn in (setconv_cuda.encode_offgrid, setconv.setconv_encode_offgrid):
+        ls = torch.tensor(0.05, device=cuda, requires_grad=True)
+        grads.append(torch.autograd.grad((fn(x1g, x2g, x, y, mask, ls) * g).sum(), ls)[0])
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=0)
+
+
+def test_encode_offgrid_grad_empty_point_set(cuda):
+    args = _points(np.random.default_rng(0), 2, 0, 1, 16, 16, 0.0, cuda)
+    before = setconv_cuda.encode_offgrid_grad.launches
+    fwd = setconv_cuda.encode_offgrid(*args, 0.1)
+    g = torch.randn(2, 16, 16, 2, device=cuda)
+    got = setconv_cuda.encode_offgrid_grad(*args, 0.1, g, fwd)
+    assert float(got) == 0.0 and setconv_cuda.encode_offgrid_grad.launches == before
+
+
 def _grid(B, H, W, C, Ht, Wt, dtype, dev):
     rng = np.random.default_rng(1)
     x1g = np.linspace(0, 1, H).astype(np.float32)
@@ -113,8 +170,15 @@ def test_decode_grid_reads_channel_first_in_place(cuda, dtype):
 def test_kernels_reject_what_they_do_not_take(cuda):
     x1g, x2g, x, y, mask = _points(np.random.default_rng(0), 1, 8, 1, 16, 16, 0.0, cuda)
     ls = torch.tensor(0.1, device=cuda, requires_grad=True)
+    out = setconv_cuda.encode_offgrid(x1g, x2g, x, y, mask, ls)  # ℓ is differentiable
+    assert out.requires_grad
+    for which in (x, y):
+        which.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="length-scale only"):
+            setconv_cuda.encode_offgrid(x1g, x2g, x, y, mask, ls)
+        which.requires_grad_(False)
     with pytest.raises(RuntimeError, match="forward only"):
-        setconv_cuda.encode_offgrid(x1g, x2g, x, y, mask, ls)
+        setconv_cuda.decode_grid(x1g, x2g, torch.randn(1, 16, 16, 4, device=cuda), x1g, x2g, ls)
     with pytest.raises(TypeError):
         setconv_cuda.encode_offgrid(x1g, x2g, x.double(), y, mask, 0.1)
     with pytest.raises(ValueError):

@@ -2,9 +2,10 @@
 
 A machine with an NVIDIA card may have no jax, flax or the JAX package.
 These tests block those imports in a fresh interpreter, then import every
-module of ``deepsensornz_tpu_torch`` and ``chip_smoke`` and serve a tiny
-gridded request on the CPU. The kernel module must also import without
-``nvcc``: the kernels are built at first use on the card.
+module of ``deepsensornz_tpu_torch`` and ``chip_smoke``, serve a tiny
+gridded request on the CPU, and train: one train step and a one-epoch
+``Trainer.fit`` with a checkpoint. The kernel module must also import
+without ``nvcc``: the kernels are built at first use on the card.
 """
 
 import os
@@ -40,7 +41,8 @@ model = cs.build_model(cfg, task, seed=0, device="cpu")
 setconv_cuda.reset_launch_counts()
 pred = Predictor(model, dp, "t").predict_grid(task, dem, aux_at_targets=aux)
 cs.check_prediction(pred, dem, 2)
-assert setconv_cuda.launch_counts() == {"encode_offgrid": 0, "decode_grid": 0}
+assert setconv_cuda.launch_counts() == {"encode_offgrid": 0, "encode_offgrid_grad": 0,
+                                        "decode_grid": 0}
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "deepsensornz_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -62,12 +64,43 @@ def test_port_imports_and_serves_without_jax():
     assert "modules" in proc.stdout
 
 
+def test_port_trains_without_jax(tmp_path):
+    proc = _run(_BLOCKED + f"""
+import math, os
+import chip_smoke as cs
+from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+from deepsensornz_tpu_torch.task.batching import take
+from deepsensornz_tpu_torch.train.checkpoint import load_checkpoint
+from deepsensornz_tpu_torch.train.trainer import Trainer, init_state, make_train_step
+cfg = ConvNPConfig(unet_channels=(8, 8), internal_density=30, rank=4, decoder_channels=8,
+                   mlp_hidden=8, compute_dtype="float32")
+tasks = cs.train_task(0, 5, cfg.internal_density, base_hw=(9, 8), aux_hw=(20, 18),
+                      n_stations=12, n_targets=10)
+model = cs.build_model(cfg, tasks, seed=0, device="cpu")
+state, loss = make_train_step(model)(init_state(model), take(tasks, [0, 1]), 1e-3)
+assert state.step == 1 and math.isfinite(float(loss))
+out = Trainer(model, lr=1e-3).fit(tasks, take(tasks, [4]), n_epochs=1, batch_size=2,
+                                  checkpoint_dir={str(tmp_path)!r}, verbose=False)
+assert len(out["train_losses"]) == 1 and math.isfinite(out["best_val"])
+ck = load_checkpoint({str(tmp_path)!r})
+assert ck["metadata"]["epoch"] == 0 and ck["metadata"]["step"] == 3
+assert sorted(os.listdir({str(tmp_path)!r})) == ["metadata.json", "opt_state.pt", "params.pt"]
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("trained")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "trained" in proc.stdout
+
+
 def test_kernel_module_imports_without_nvcc():
     proc = _run(_BLOCKED + """
 import shutil
 assert shutil.which("nvcc") is None
 from deepsensornz_tpu_torch.ops import setconv_cuda, _build
-assert setconv_cuda.launch_counts() == {"encode_offgrid": 0, "decode_grid": 0}
+assert setconv_cuda.launch_counts() == {"encode_offgrid": 0, "encode_offgrid_grad": 0,
+                                        "decode_grid": 0}
 try:
     _build.find_nvcc()
 except RuntimeError:
