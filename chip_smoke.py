@@ -15,21 +15,42 @@ Phases (one line each; the first failure exits non-zero):
              608x608 internal grid (encode), the 24x608x608x64 bf16 U-Net
              output onto the 278x260 NZ 0.05 deg grid (decode), and the
              decode of f32 features at 4 tasks (the f32 / hoisted-head
-             path). Median CUDA-event times of kernel and plain version,
-             and TFLOP/s on the useful FLOPs.
+             path); then the encode at the AR feedback shapes: 24 x
+             (512 + 512) with the feedback half masked (``[ar]``'s chain)
+             and 4 x (512 + 4552) with 4552 masked slots (AR on the 70x65
+             subsampled grid, 8 blocks of 569). Median CUDA-event times of
+             kernel and plain version, the work the inputs need (FLOPs over
+             the nonzero RBF weights, bytes read and written once) and the
+             least time the card could take for it (the larger of FLOPs at
+             the TF32 tensor-core peak and bytes at the HBM rate); for the
+             decode also the one PyTorch call that computes the same
+             function (``einsum`` on the same f in f32, TF32 off).
 4. serve   - the flagship ConvNP (U-Net (64,)*4, k=5, gnp rank 64, density
              500, bf16 U-Net, random weights from a seed) behind
              ``Predictor.predict_grid``: three requests of 24 tasks; checks
              the mean/std fields and that both kernels were launched.
-5. reference - a small ConvNP on the GPU (kernels) against the same weights
-             on the CPU (plain versions), through ``predict_grid``.
-6. train-kernels - B1's length-scale backward against its plain version in
+5. sample-serve - one 24-task request with 4 joint samples, twice with one
+             seed: samples finite on land, NaN on sea, equal between the
+             two, their per-cell mean within 4 std/sqrt(4) of the mean map
+             on >= 99 % of land cells; then one 48-task request with
+             ``batch_chunk=24`` whose mean/std match two 24-task requests.
+             Wall and CUDA-event times, peak memory, launches.
+6. ar      - ``ar_sample`` at ``perf/ar_bench.py``'s shape (24 tasks x 512
+             targets, 8 blocks, one sample): one warm-up and 3 timed
+             calls, B1 launched exactly 8 times per call; then one
+             ``ar_sample_grid`` of 4 tasks on the 278x260 grid (subsample
+             4, 8 blocks): shape, NaN sea, finite land, times.
+7. reference - a small ConvNP on the GPU (kernels) against the same weights
+             on the CPU (plain versions): ``predict_grid``,
+             ``predict_points``, and the AR chain with the head's sample
+             replaced by its mean over one visit order.
+8. train-kernels - B1's length-scale backward against its plain version in
              float64, at the training shape (8x512 stations onto 608x608)
              and the serving shape (24x512), for a random upstream gradient,
              a density-only one and one positive on every channel; twice
              each (the result must not change from run to run). CUDA-event
              times of the kernel and of the plain f32 autograd backward.
-7. train   - the flagship ConvNP's train step at ``perf/train_bench.py``'s
+9. train   - the flagship ConvNP's train step at ``perf/train_bench.py``'s
              shape (batch 8: the serving contexts plus 512 station targets
              with one aux channel; lr 5e-5): one warm-up step and 5 timed
              steps (CUDA events and wall, their median tasks/s), then one
@@ -38,13 +59,14 @@ Phases (one line each; the first failure exits non-zero):
              and uploads included); losses, peak memory; checks finite
              losses, moved parameters, and B1's forward and backward
              launched on every step.
-8. train-reference - one train step of a small ConvNP on the GPU (kernels)
+10. train-reference - one train step of a small ConvNP on the GPU (kernels)
              and on the CPU (plain versions) from the same weights and
              batch: the loss, every parameter's gradient, and the update
              where Adam's first step is well conditioned.
 
-The last two lines are a JSON object of per-kernel results and the
-``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy
+The last two lines are a JSON object of per-kernel results (its launch
+counts are those of the main-path phases: serve, sample-serve, ar and
+train) and the ``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy
 and the standard library.
 """
 
@@ -91,6 +113,22 @@ GRAD_RTOL, GRAD_SUM_TOL = 1e-5, 1e-7
 TRAIN_REF_RTOL, TRAIN_REF_ATOL_FRAC, TRAIN_REF_STEP_ATOL = 1e-4, 1e-4, 2e-3
 TRAIN_REF_STEP_MIN_GRAD = 1e-6
 
+N_SAMPLES = 4  # joint samples of the sampled request
+SAMPLE_SEED = 5
+# the chunked request against unchunked ones: the same chunk size runs the
+# same kernels in the same order, so only a rounding-level difference is let
+# through: |got - ref| <= CHUNK_RTOL*|ref| + ATOL_FRAC*max|ref|
+CHUNK_RTOL = 1e-5
+AR_BLOCKS = 8
+AR_REPS = 3  # timed ar_sample calls, after one warm-up
+AR_GRID_TASKS = 4
+AR_SUBSAMPLE = 4
+# the least time the card could take: FLOPs at the dense TF32 tensor-core
+# rate (the fastest the card multiplies f32 operands) or bytes at the HBM
+# rate, whichever is larger (H100 SXM data sheet, at a 700 W limit)
+PEAK_TF32_FLOPS = 495e12
+HBM_BYTES_PER_S = 3.35e12
+
 KERNELS = {
     "encode_offgrid": ("deepsensornz_tpu_torch/csrc/setconv_encode.cu",
                        "deepsensornz_tpu/ops/setconv_pallas.py:102"),
@@ -131,6 +169,46 @@ def compare(got, ref, rtol: float, atol_frac: float) -> dict:
     return {"max_abs_err": float(err.max()),
             "max_rel_err": float((err / (ref.abs() + atol + 1e-30)).max()),
             "atol": atol, "ok": worst <= 0.0}
+
+
+def card_bound(flops: float, nbytes: float) -> dict:
+    """The least time (ms) the card could take for this work, and which of
+    the two terms sets it."""
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def encode_work(setconv, x1g, x2g, x, y, mask, ls, grad: bool = False) -> tuple[float, float]:
+    """(FLOPs, bytes) the station encode needs on these inputs: 2(C+1)
+    FLOPs for each grid cell where a point with mask != 0 has a nonzero RBF
+    weight in both coordinates (everything else adds exact zeros); the
+    inputs read once and the (B, H, W, C+1) output written once. Its
+    l-gradient forms two such sums per channel and reads the upstream
+    gradient and the forward's output instead of writing an output."""
+    nh = (setconv.rbf(x1g[None, :, None], x[:, None, :, 0], ls) != 0).sum(1)  # (B, N)
+    nw = (setconv.rbf(x2g[None, None, :], x[:, :, None, 1], ls) != 0).sum(2)  # (B, N)
+    pairs = float((nh.double() * nw.double() * (mask != 0)).sum())
+    c1 = y.shape[-1] + 1
+    cells = x.shape[0] * x1g.shape[0] * x2g.shape[0] * c1
+    inputs = 4 * (x.numel() + y.numel() + mask.numel() + x1g.numel() + x2g.numel())
+    if grad:
+        return 2 * 2.0 * c1 * pairs, inputs + 2 * 4 * cells + 4
+    return 2.0 * c1 * pairs, inputs + 4 * cells
+
+
+def decode_work(setconv, x1g, x2g, f, xt1, xt2, ls) -> tuple[float, float]:
+    """(FLOPs, bytes) the gridded decode needs: the two separable products
+    over the nonzero RBF weights only, in the cheaper order; f read once in
+    its dtype, the f32 output written once."""
+    nnz_a = float((setconv.rbf(xt1[:, None], x1g[None, :], ls) != 0).sum())  # (Ht, H)
+    nnz_b = float((setconv.rbf(x2g[:, None], xt2[None, :], ls) != 0).sum())  # (W, Wt)
+    B, H, W, C = f.shape
+    Ht, Wt = xt1.shape[0], xt2.shape[0]
+    flops = 2.0 * B * C * min(W * nnz_a + Ht * nnz_b, H * nnz_b + Wt * nnz_a)
+    nbytes = (f.numel() * f.element_size() + 4 * B * Ht * Wt * C
+              + 4 * (H + W + Ht + Wt))
+    return flops, nbytes
 
 
 def sass_tensor_ops(lib_path: Path) -> dict:
@@ -267,6 +345,294 @@ def check_prediction(pred, dem, n_tasks: int) -> None:
         raise AssertionError("std not positive on land")
 
 
+def timed(fn):
+    """(result, CUDA-event ms, wall s) of one call, synchronise to synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), time.perf_counter() - t0
+
+
+def sample_serve(dev, model, dp, dem, aux_field, target_var, setconv_cuda) -> dict:
+    """Phase 5: a sampled 24-task request (twice, one seed) and a chunked
+    48-task request against two unchunked ones; returns the launch counts."""
+    import torch
+
+    from deepsensornz_tpu_torch.infer.predict import Predictor
+    from deepsensornz_tpu_torch.task.batching import take
+
+    predictor = Predictor(model, dp, target_var)
+    task = cycle_task(31, N_TASKS, model.cfg.internal_density)
+    land = ~np.isnan(dem.data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    setconv_cuda.reset_launch_counts()
+    preds = []
+    for i in range(2):
+        pred, ms, wall = timed(lambda: predictor.predict_grid(
+            task, dem, aux_at_targets=aux_field, n_samples=N_SAMPLES, seed=SAMPLE_SEED))
+        preds.append(pred)
+        say("sample-serve", f"request {i} ({N_TASKS} tasks, {N_SAMPLES} samples): {ms:.1f} ms "
+            f"(CUDA events), {wall:.3f} s wall")
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_prediction(pred, dem, N_TASKS)
+    smp = pred["samples"].data
+    if smp.shape != (N_SAMPLES, N_TASKS) + dem.shape:
+        raise AssertionError(f"samples shape {smp.shape}")
+    if not np.isfinite(smp[..., land]).all() or not np.isnan(smp[..., ~land]).all():
+        raise AssertionError("samples not finite on land and NaN on sea")
+    same = np.array_equal(preds[0]["samples"].data, smp, equal_nan=True)
+    dev_mean = np.abs(smp[..., land].mean(0) - pred["mean"].data[:, land])
+    share = float((dev_mean <= 4.0 * pred["std"].data[:, land] / np.sqrt(N_SAMPLES)).mean())
+    say("sample-serve", f"peak memory {peak / 2**30:.2f} GiB; samples {smp.shape}, land mean "
+        f"{np.mean(smp[..., land]):.4f} std {np.std(smp[..., land]):.4f}; same seed same samples "
+        f"{same}; per-cell sample mean within 4 std/sqrt({N_SAMPLES}) of the mean on "
+        f"{100 * share:.3f} % of land cells")
+    if not same:
+        raise AssertionError("the same seed gave different samples")
+    if share < 0.99:
+        raise AssertionError(f"sample means off the mean map on {100 * (1 - share):.2f} % of land")
+
+    task48 = cycle_task(32, 2 * N_TASKS, model.cfg.internal_density)
+    torch.cuda.reset_peak_memory_stats(dev)
+    chunked = Predictor(model, dp, target_var, batch_chunk=N_TASKS)
+    big, ms, wall = timed(lambda: chunked.predict_grid(task48, dem, aux_at_targets=aux_field))
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_prediction(big, dem, 2 * N_TASKS)
+    halves = [predictor.predict_grid(take(task48, list(range(i * N_TASKS, (i + 1) * N_TASKS))),
+                                     dem, aux_at_targets=aux_field) for i in range(2)]
+    errs = []
+    for key in ("mean", "std"):
+        ref = np.concatenate([h[key].data[:, land] for h in halves])
+        cmp = compare(torch.from_numpy(big[key].data[:, land]), torch.from_numpy(ref),
+                      CHUNK_RTOL, ATOL_FRAC)
+        errs.append(f"{key} max_abs_err {cmp['max_abs_err']:.3e}")
+        if not cmp["ok"]:
+            raise AssertionError(f"chunked {key} disagrees with the unchunked requests")
+    counts = setconv_cuda.launch_counts()
+    say("sample-serve", f"chunked request ({2 * N_TASKS} tasks, batch_chunk={N_TASKS}): "
+        f"{ms:.1f} ms (CUDA events), {wall:.3f} s wall, peak memory {peak / 2**30:.2f} GiB; "
+        f"against two {N_TASKS}-task requests: {', '.join(errs)} (rtol {CHUNK_RTOL}); "
+        f"launches {counts}")
+    for name in ("encode_offgrid", "decode_grid"):
+        if counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the sampled requests")
+    return counts
+
+
+def ar_phase(dev, model, dp, dem, aux_field, target_var, setconv_cuda) -> dict:
+    """Phase 6: ar_sample at perf/ar_bench.py's shape, then ar_sample_grid
+    on the NZ grid; returns the launch counts."""
+    import torch
+
+    from deepsensornz_tpu_torch.infer import ar
+    from deepsensornz_tpu_torch.infer.predict import Predictor
+
+    task = train_task(40, N_TASKS, model.cfg.internal_density)  # 512 targets, one aux channel
+    n_blocks = ar.block_geometry(N_TARGETS, AR_BLOCKS)[1]  # 8 blocks of 64
+    gen = torch.Generator(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    setconv_cuda.reset_launch_counts()
+    ms_all, wall_all = [], []
+    for i in range(1 + AR_REPS):
+        before = setconv_cuda.launch_counts()["encode_offgrid"]
+        gen.manual_seed(i)
+        smp, ms, wall = timed(lambda: ar.ar_sample(model, task, n_samples=1,
+                                                   n_blocks=AR_BLOCKS, generator=gen))
+        b1 = setconv_cuda.launch_counts()["encode_offgrid"] - before
+        ms_all.append(ms)
+        wall_all.append(wall)
+        say("ar", f"ar_sample call {i}{' (warm-up)' if i == 0 else ''}: {ms:.1f} ms (CUDA "
+            f"events), {wall:.3f} s wall; B1 launched {b1} times; sample mean "
+            f"{smp.mean():.4f} std {smp.std():.4f}")
+        if smp.shape != (1, N_TASKS, N_TARGETS, 1) or not np.isfinite(smp).all():
+            raise AssertionError(f"ar_sample gave {smp.shape}, finite {np.isfinite(smp).all()}")
+        if b1 != n_blocks:
+            raise AssertionError(f"B1 launched {b1} times in one {n_blocks}-block AR sample")
+    peak = torch.cuda.max_memory_allocated(dev)
+    say("ar", f"median of {AR_REPS} calls ({N_TASKS} tasks x {N_TARGETS} targets, {n_blocks} "
+        f"blocks, 1 sample): {float(np.median(ms_all[1:])):.1f} ms (CUDA events), "
+        f"{float(np.median(wall_all[1:])):.3f} s wall; peak memory {peak / 2**30:.2f} GiB")
+
+    grid_task = cycle_task(41, AR_GRID_TASKS, model.cfg.internal_density)
+    grid_m = len(range(0, dem.shape[0], AR_SUBSAMPLE)) * len(range(0, dem.shape[1], AR_SUBSAMPLE))
+    grid_blocks = ar.block_geometry(grid_m, AR_BLOCKS)[1]  # 8 at the NZ grid's 70x65 points
+    before = setconv_cuda.launch_counts()["encode_offgrid"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, ms, wall = timed(lambda: Predictor(model, dp, target_var).ar_sample_grid(
+        grid_task, dem, aux_at_targets=aux_field, subsample_factor=AR_SUBSAMPLE,
+        n_blocks=AR_BLOCKS, seed=3))
+    b1 = setconv_cuda.launch_counts()["encode_offgrid"] - before
+    peak = torch.cuda.max_memory_allocated(dev)
+    sea = np.isnan(dem.data)
+    say("ar", f"ar_sample_grid ({AR_GRID_TASKS} tasks, {dem.shape} grid, subsample "
+        f"{AR_SUBSAMPLE}: {grid_m} points in {grid_blocks} blocks): {out.shape}, {ms:.1f} ms (CUDA events), {wall:.3f} s wall, peak "
+        f"memory {peak / 2**30:.2f} GiB; B1 launched {b1} times; land mean "
+        f"{np.mean(out[..., ~sea]):.4f} std {np.std(out[..., ~sea]):.4f}")
+    if out.shape != (1, AR_GRID_TASKS) + dem.shape:
+        raise AssertionError(f"ar_sample_grid shape {out.shape}")
+    if not np.isnan(out[..., sea]).all() or not np.isfinite(out[..., ~sea]).all():
+        raise AssertionError("ar_sample_grid not NaN on sea and finite on land")
+    if b1 != grid_blocks:
+        raise AssertionError(f"B1 launched {b1} times in the {grid_blocks}-block grid AR sample")
+    counts = setconv_cuda.launch_counts()
+    say("ar", f"launches {counts}")
+    return counts
+
+
+def kernel_checks(dev, model, dp, dem, task0) -> dict:
+    """Phase 3: each kernel against its plain version at the main path's
+    shapes (and B1 at the AR feedback shapes); returns per-kernel results
+    at the main shape, with the largest error over its shapes."""
+    import torch
+
+    from deepsensornz_tpu_torch.infer import ar
+    from deepsensornz_tpu_torch.ops import setconv, setconv_cuda
+
+    cfg = model.cfg
+    results = {}
+    with torch.inference_mode():
+        task = task0.to(dev)
+        p = task.points[0]
+        ls_pts = model.lengthscale("ls_points_0")
+        enc_args = (task.x1g, task.x2g, p.x, p.y, p.mask, ls_pts)
+        f = model.features(task)  # bf16, channel-first memory seen as NHWC
+        xt1 = torch.from_numpy(dp.map_x1(dem.coords["latitude"]).astype(np.float32)).to(dev)
+        xt2 = torch.from_numpy(dp.map_x2(dem.coords["longitude"]).astype(np.float32)).to(dev)
+        ls_dec = model.lengthscale("ls_decoder")
+        # the flagship path hands the U-Net's bf16 output to the decode; the
+        # f32 path (f32 U-Net, hoisted head) is held at a smaller depth
+        f4 = f[:F32_TASKS].float()
+        B, H, W, C = f.shape
+        Ht, Wt = dem.shape
+        dec_flop = 2.0 * C * (Ht * H * W + Ht * W * Wt)  # per task, both contractions, dense
+        # the AR feedback shapes: the station set with its masked feedback
+        # slots, as ar_sample extends it (x = -1e3, y = 0, mask = 0)
+        ar_b = ar.block_geometry(N_TARGETS, AR_BLOCKS)
+        grid_m = len(range(0, Ht, AR_SUBSAMPLE)) * len(range(0, Wt, AR_SUBSAMPLE))
+        ar_g = ar.block_geometry(grid_m, AR_BLOCKS)
+        pe = ar._extend_point_context(p, ar_b[0] * ar_b[1])
+        task4 = cycle_task(3, AR_GRID_TASKS, cfg.internal_density).to(dev)
+        pg = ar._extend_point_context(task4.points[0], ar_g[0] * ar_g[1])
+        cases = {
+            "encode_offgrid": (setconv_cuda.encode_offgrid, setconv.setconv_encode_offgrid,
+                               enc_args, 2.0 * B * H * W * p.x.shape[1] * (p.y.shape[-1] + 1)),
+            "decode_grid": (setconv_cuda.decode_grid, setconv.setconv_decode_grid,
+                            (task.x1g, task.x2g, f, xt1, xt2, ls_dec), B * dec_flop),
+            "decode_grid_f32": (setconv_cuda.decode_grid, setconv.setconv_decode_grid,
+                                (task.x1g, task.x2g, f4, xt1, xt2, ls_dec), F32_TASKS * dec_flop),
+            "encode_offgrid_ar_feedback": (
+                setconv_cuda.encode_offgrid, setconv.setconv_encode_offgrid,
+                (task.x1g, task.x2g, pe.x, pe.y, pe.mask, ls_pts),
+                2.0 * B * H * W * pe.x.shape[1] * (pe.y.shape[-1] + 1)),
+            "encode_offgrid_ar_grid": (
+                setconv_cuda.encode_offgrid, setconv.setconv_encode_offgrid,
+                (task4.x1g, task4.x2g, pg.x, pg.y, pg.mask, ls_pts),
+                2.0 * AR_GRID_TASKS * H * W * pg.x.shape[1] * (pg.y.shape[-1] + 1)),
+        }
+        for name, (kernel, plain, args, flop) in cases.items():
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            cmp = compare(got, plain(*args), RTOL, ATOL_FRAC)
+            ms = cuda_ms(lambda: kernel(*args))
+            plain_ms = cuda_ms(lambda: plain(*args))
+            work = (encode_work(setconv, *args) if kernel is setconv_cuda.encode_offgrid
+                    else decode_work(setconv, *args))
+            bnd = card_bound(*work)
+            lib = ""
+            library_ms = None
+            if name == "decode_grid":
+                # one PyTorch call for the same function: the normalised
+                # weights contracted with the same f in f32 (TF32 off)
+                A = setconv.rbf(xt1[:, None], task.x1g[None, :], ls_dec)
+                Bm = setconv.rbf(task.x2g[:, None], xt2[None, :], ls_dec)
+                A = A / (A.sum(1, keepdim=True) + setconv.DENSITY_EPS)
+                Bm = Bm / (Bm.sum(0, keepdim=True) + setconv.DENSITY_EPS)
+                fcf = f.permute(0, 3, 1, 2).float()
+                library_ms = cuda_ms(lambda: torch.einsum("th,bchw,wu->bctu", A, fcf, Bm))
+                lib = f", library einsum {library_ms:.3f} ms"
+                del A, Bm, fcf
+            say("kernels", f"{name} {tuple(args[2].shape)} -> {tuple(got.shape)}: max_abs_err "
+                f"{cmp['max_abs_err']:.3e} max_rel_err {cmp['max_rel_err']:.3e} (rtol {RTOL}, "
+                f"atol {cmp['atol']:.3e}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}; "
+                f"dense {flop / 1e9:.1f} GFLOP ({flop / ms / 1e9:.1f} TFLOP/s); needed "
+                f"{work[0] / 1e9:.2f} GFLOP, {work[1] / 1e6:.1f} MB: bound {bnd['bound_ms']:.4f} ms "
+                f"by {bnd['bound_by']}")
+            if not cmp["ok"]:
+                raise AssertionError(f"{name} disagrees with its plain version")
+            entry = results.setdefault(name.replace("_f32", "").replace("_ar_feedback", "")
+                                       .replace("_ar_grid", ""), {})
+            if not entry:  # the first case of each kernel is its main-path shape
+                entry.update({"ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms})
+            entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), cmp["max_abs_err"])
+        del f, f4, got, task, task4, pe, pg
+    return results
+
+
+def serve_reference(dev, dp, target_var) -> None:
+    """Phase 7: a small ConvNP on the GPU (kernels) against the same weights
+    on the CPU (plain versions): ``predict_grid``, ``predict_points``, and
+    the AR chain over one visit order with the head's sample replaced by
+    its mean (deterministic, so both devices must agree)."""
+    import dataclasses
+
+    import torch
+
+    from deepsensornz_tpu_torch.infer import ar
+    from deepsensornz_tpu_torch.infer.predict import Predictor
+    from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+
+    small = ConvNPConfig(unet_channels=(8, 8), likelihood="gnp", internal_density=40,
+                         rank=4, decoder_channels=8, mlp_hidden=8, compute_dtype="float32")
+    sdem, saux = target_fields(dp, (30, 28), seed=1)
+    stask = cycle_task(4, 3, small.internal_density, base_hw=(12, 11), aux_hw=(30, 28),
+                       n_stations=40)
+    ptask = train_task(6, 3, small.internal_density, base_hw=(12, 11), aux_hw=(30, 28),
+                       n_stations=40, n_targets=20)
+    models = {"gpu": build_model(small, stask, seed=1, device=dev),
+              "cpu": build_model(small, stask, seed=1, device="cpu")}
+    got = {}
+    for k, m in models.items():
+        pred = Predictor(m, dp, target_var)
+        grid = pred.predict_grid(stask, sdem, aux_at_targets=saux)
+        pts = pred.predict_points(ptask)
+        got[k] = {"grid mean": grid["mean"].data[:, ~np.isnan(sdem.data)],
+                  "grid std": grid["std"].data[:, ~np.isnan(sdem.data)],
+                  "points mean": pts["mean"], "points std": pts["std"]}
+    block, n_blocks, pad = ar.block_geometry(ptask.num_targets, 3)
+    order = torch.cat([torch.arange(ptask.num_targets), torch.arange(pad)]).repeat(3, 1)
+    head = type(small.make_likelihood())
+    sample = head.sample
+    head.sample = lambda self, raw, gen, n: self.mean_std(raw)[0][None]
+    try:
+        for k, m in models.items():
+            d = next(m.parameters()).device
+            t = ptask.to(d)
+            t = dataclasses.replace(t, points=(ar._extend_point_context(t.points[0],
+                                                                        n_blocks * block),))
+            got[k]["AR chain (mean feedback)"] = ar.run_chain(
+                m, t, order.to(d), torch.Generator(device=d), 1.0, idx=0,
+                base_n=ptask.points[0].x.shape[1], n_extra=0, block=block,
+                n_blocks=n_blocks, pad=pad).cpu().numpy()
+    finally:
+        head.sample = sample
+    for key in got["cpu"]:
+        cmp = compare(torch.from_numpy(np.asarray(got["gpu"][key])),
+                      torch.from_numpy(np.asarray(got["cpu"][key])), REF_RTOL, REF_ATOL_FRAC)
+        say("reference", f"{key}: GPU vs CPU max_abs_err {cmp['max_abs_err']:.3e} "
+            f"(rtol {REF_RTOL}, atol {cmp['atol']:.3e})")
+        if not cmp["ok"]:
+            raise AssertionError(f"small-model {key} on the GPU disagrees with the CPU")
+
+
 def train_kernels(dev, model, setconv, setconv_cuda) -> dict:
     """Phase 6: B1's backward against its plain version in float64 at the
     training and serving shapes; returns the training shape's numbers."""
@@ -315,7 +681,10 @@ def train_kernels(dev, model, setconv, setconv_cuda) -> dict:
         say("train-kernels", f"{label}: kernel {ms:.3f} ms, plain f32 autograd backward "
             f"{plain_ms:.3f} ms (CUDA events, median of {TIMING_REPS})")
         if label == "train":
-            out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            bnd = card_bound(*encode_work(setconv, *pts, ls, grad=True))
+            say("train-kernels", f"{label}: bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+            out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **bnd,
+                   "library_ms": None}
         else:
             out["max_abs_err"] = max(out["max_abs_err"], max_err)
         del enc, fwd, terms, task
@@ -339,15 +708,9 @@ def train_flagship(dev, model, cfg, setconv_cuda) -> dict:
     setconv_cuda.reset_launch_counts()
     losses, step_ms, step_s = [], [], []
     for i in range(1 + TRAIN_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        state, loss = step(state, task, TRAIN_LR)
-        end.record()
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        step_ms.append(start.elapsed_time(end))
+        (state, loss), ms, wall = timed(lambda: step(state, task, TRAIN_LR))
+        step_ms.append(ms)
+        step_s.append(wall)
         losses.append(float(loss))
         say("train", f"step {i}{' (warm-up)' if i == 0 else ''}: {step_ms[-1]:.1f} ms "
             f"(CUDA events), {step_s[-1]:.4f} s wall; loss {losses[-1]:.6f}")
@@ -449,8 +812,8 @@ def main() -> int:
         return 1
     import_port()
     from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
-    from deepsensornz_tpu_torch.ops import _build, setconv, setconv_cuda
     from deepsensornz_tpu_torch.infer.predict import Predictor
+    from deepsensornz_tpu_torch.ops import _build, setconv, setconv_cuda
 
     # -- 1. device ---------------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -490,44 +853,7 @@ def main() -> int:
                        mlp_hidden=64, kernel_size=5, compute_dtype="bfloat16")
     task0 = cycle_task(0, N_TASKS, cfg.internal_density)
     model = build_model(cfg, task0, seed=0, device=dev)
-    results = {}
-    with torch.inference_mode():
-        task = task0.to(dev)
-        p = task.points[0]
-        enc_args = (task.x1g, task.x2g, p.x, p.y, p.mask, model.lengthscale("ls_points_0"))
-        f = model.features(task)  # bf16, channel-first memory seen as NHWC
-        xt1 = torch.from_numpy(dp.map_x1(dem.coords["latitude"]).astype(np.float32)).to(dev)
-        xt2 = torch.from_numpy(dp.map_x2(dem.coords["longitude"]).astype(np.float32)).to(dev)
-        ls_dec = model.lengthscale("ls_decoder")
-        # the flagship path hands the U-Net's bf16 output to the decode; the
-        # f32 path (f32 U-Net, hoisted head) is held at a smaller depth
-        f4 = f[:F32_TASKS].float()
-        B, H, W, C = f.shape
-        Ht, Wt = TARGET_HW
-        dec_flop = 2.0 * C * (Ht * H * W + Ht * W * Wt)  # per task, both contractions
-        cases = {
-            "encode_offgrid": (setconv_cuda.encode_offgrid, setconv.setconv_encode_offgrid,
-                               enc_args, 2.0 * N_TASKS * H * W * N_STATIONS * (p.y.shape[-1] + 1)),
-            "decode_grid": (setconv_cuda.decode_grid, setconv.setconv_decode_grid,
-                            (task.x1g, task.x2g, f, xt1, xt2, ls_dec), N_TASKS * dec_flop),
-            "decode_grid_f32": (setconv_cuda.decode_grid, setconv.setconv_decode_grid,
-                                (task.x1g, task.x2g, f4, xt1, xt2, ls_dec), F32_TASKS * dec_flop),
-        }
-        for name, (kernel, plain, args, flop) in cases.items():
-            got = kernel(*args)
-            torch.cuda.synchronize()
-            cmp = compare(got, plain(*args), RTOL, ATOL_FRAC)
-            ms = cuda_ms(lambda: kernel(*args))
-            plain_ms = cuda_ms(lambda: plain(*args))
-            say("kernels", f"{name} {tuple(got.shape)}: max_abs_err {cmp['max_abs_err']:.3e} "
-                f"max_rel_err {cmp['max_rel_err']:.3e} (rtol {RTOL}, atol {cmp['atol']:.3e}) "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-                f"{flop / 1e9:.1f} GFLOP useful: kernel {flop / ms / 1e9:.1f} TFLOP/s, "
-                f"plain {flop / plain_ms / 1e9:.1f} TFLOP/s")
-            if not cmp["ok"]:
-                raise AssertionError(f"{name} disagrees with its plain version")
-            results[name] = {"max_abs_err": cmp["max_abs_err"], "ms": ms, "plain_ms": plain_ms}
-        del f, f4, got, task
+    results = kernel_checks(dev, model, dp, dem, task0)
 
     # -- 4. serve three 24-task requests ---------------------------------------------
     predictor = Predictor(model, dp, target_var)
@@ -538,15 +864,9 @@ def main() -> int:
     setconv_cuda.reset_launch_counts()
     request_ms, request_s = [], []
     for i, task in enumerate(tasks):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        pred = predictor.predict_grid(task, dem, aux_at_targets=aux_field)
-        end.record()
-        torch.cuda.synchronize()
-        request_s.append(time.perf_counter() - t0)
-        request_ms.append(start.elapsed_time(end))
+        pred, ms, wall = timed(lambda: predictor.predict_grid(task, dem, aux_at_targets=aux_field))
+        request_ms.append(ms)
+        request_s.append(wall)
         check_prediction(pred, dem, N_TASKS)
         land = ~np.isnan(dem.data)
         say("serve", f"request {i}: {request_ms[-1]:.1f} ms (CUDA events), "
@@ -561,31 +881,18 @@ def main() -> int:
         if serve_counts[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the serving path")
 
-    # -- 5. a small forward on the GPU against the CPU ---------------------------------
-    small = ConvNPConfig(unet_channels=(8, 8), likelihood="gnp", internal_density=40,
-                         rank=4, decoder_channels=8, mlp_hidden=8, compute_dtype="float32")
-    sdem, saux = target_fields(dp, (30, 28), seed=1)
-    stask = cycle_task(4, 3, small.internal_density, base_hw=(12, 11), aux_hw=(30, 28),
-                       n_stations=40)
-    gpu_model = build_model(small, stask, seed=1, device=dev)
-    cpu_model = build_model(small, stask, seed=1, device="cpu")
-    a = Predictor(gpu_model, dp, target_var).predict_grid(stask, sdem, aux_at_targets=saux)
-    b = Predictor(cpu_model, dp, target_var).predict_grid(stask, sdem, aux_at_targets=saux)
-    land = ~np.isnan(sdem.data)
-    for key in ("mean", "std"):
-        cmp = compare(torch.from_numpy(a[key].data[:, land]),
-                      torch.from_numpy(b[key].data[:, land]), REF_RTOL, REF_ATOL_FRAC)
-        say("reference", f"{key}: GPU vs CPU max_abs_err {cmp['max_abs_err']:.3e} "
-            f"(rtol {REF_RTOL}, atol {cmp['atol']:.3e})")
-        if not cmp["ok"]:
-            raise AssertionError(f"small-model {key} on the GPU disagrees with the CPU")
+    sample_counts = sample_serve(dev, model, dp, dem, aux_field, target_var, setconv_cuda)
+    ar_counts = ar_phase(dev, model, dp, dem, aux_field, target_var, setconv_cuda)
+    serve_reference(dev, dp, target_var)
 
     results["encode_offgrid_grad"] = train_kernels(dev, model, setconv, setconv_cuda)
     train_counts = train_flagship(dev, model, cfg, setconv_cuda)
     train_reference(dev, setconv_cuda)
 
-    launches = {name: serve_counts[name] + train_counts[name] for name in KERNELS}
-    say("launches", f"serve {serve_counts}, train {train_counts}")
+    phases = {"serve": serve_counts, "sample-serve": sample_counts, "ar": ar_counts,
+              "train": train_counts}
+    launches = {name: sum(c[name] for c in phases.values()) for name in KERNELS}
+    say("launches", "; ".join(f"{k} {v}" for k, v in phases.items()))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name], **results[name]}

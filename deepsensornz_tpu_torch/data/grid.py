@@ -3,7 +3,9 @@
 numpy copy of the subset of ``deepsensornz_tpu/data/grid.py`` that
 gridded prediction touches: construction, ``dims``/``coords``, ``rename``,
 block-mean ``coarsen``, nearest/linear interpolation along one dim and
-``fillna``. NetCDF I/O is not carried over (it needs h5py).
+``fillna``; and ``interp_grid_at_points`` from
+``deepsensornz_tpu/task/loader.py``, which AR sampling on a grid needs.
+NetCDF I/O is not carried over (it needs h5py).
 """
 
 from __future__ import annotations
@@ -173,3 +175,24 @@ class Dataset:
     def __repr__(self):
         inner = "\n  ".join(repr(f) for f in self._fields.values())
         return f"<Dataset\n  {inner}\n>"
+
+
+def interp_grid_at_points(field: Field, x1: np.ndarray, x2: np.ndarray) -> np.ndarray:
+    """Bilinear interpolation of a (x1, x2) Field at scattered points
+    (edge-clamped, NaN read as 0)."""
+    g1 = field.coords[field.dims[-2]].astype(np.float64)
+    g2 = field.coords[field.dims[-1]].astype(np.float64)
+    s1 = np.argsort(g1)
+    s2 = np.argsort(g2)
+    d = np.take(np.take(np.nan_to_num(field.data), s1, -2), s2, -1)
+    g1s, g2s = g1[s1], g2[s2]
+
+    def locate(g, p):
+        i = np.clip(np.searchsorted(g, p), 1, len(g) - 1)
+        w = np.clip((p - g[i - 1]) / np.maximum(g[i] - g[i - 1], 1e-12), 0, 1)
+        return i - 1, w
+
+    i1, w1 = locate(g1s, np.asarray(x1, np.float64))
+    i2, w2 = locate(g2s, np.asarray(x2, np.float64))
+    return (d[..., i1, i2] * (1 - w1) * (1 - w2) + d[..., i1, i2 + 1] * (1 - w1) * w2
+            + d[..., i1 + 1, i2] * w1 * (1 - w2) + d[..., i1 + 1, i2 + 1] * w1 * w2)

@@ -1,1 +1,1 @@
-"""Gridded prediction."""
+"""Prediction: gridded and point requests, joint and AR sampling."""

@@ -1,31 +1,42 @@
-"""Gridded prediction: ConvNP → physical-units mean/std fields.
+"""Prediction: ConvNP → physical-units mean/std (+ samples) fields.
 
-Counterpart of ``Predictor.predict_grid`` in
-``deepsensornz_tpu/infer/predict.py``: takes a batch of tasks and a target
-DEM ``Field`` (raw latitude/longitude coordinates, NaN = sea), runs the
-forward on the model's device, rescales the predictive spread by
-``std_scale``, takes the head's mean/std, gathers the land cells on the
-device, and returns them unnormalised as ``Field``s with NaN sea cells.
+Counterpart of ``Predictor`` in ``deepsensornz_tpu/infer/predict.py``:
 
-The whole batch runs under ``torch.inference_mode()``. Joint samples
-(``n_samples > 0``), the compressed transfer modes and batch chunking are
-not ported yet and raise ``NotImplementedError``.
+- ``predict_grid`` takes a batch of tasks and a target DEM ``Field`` (raw
+  latitude/longitude coordinates, NaN = sea), runs the forward on the
+  model's device, rescales the predictive spread by ``std_scale``, takes
+  the head's mean/std and, with ``n_samples > 0``, joint samples over the
+  whole grid; gathers the land cells on the device, and returns them
+  unnormalised as ``Field``s with NaN sea cells. ``batch_chunk`` splits a
+  long batch into fixed-size chunks that run one after another.
+- ``predict_points`` gives mean/std (and ``p_wet`` for bernoulli-gamma) at
+  the task's off-grid targets.
+- ``ar_sample_grid`` draws coherent AR samples on a subsampled grid and
+  interpolates them back onto the full grid.
+
+Every request runs under ``torch.inference_mode()``. The compressed
+transfer modes (``transfer_dtype``, ``upload_dtype``) and threaded
+downloads (``download_threads``) are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from deepsensornz_tpu_torch.data.grid import Dataset, Field
+from deepsensornz_tpu_torch.data.grid import Dataset, Field, interp_grid_at_points
 from deepsensornz_tpu_torch.data.processor import DataProcessor
+from deepsensornz_tpu_torch.infer.ar import ar_sample
+from deepsensornz_tpu_torch.task.batching import take
 from deepsensornz_tpu_torch.task.task import TaskBatch
 
 
 class Prediction(Dataset):
-    """Dataset of mean/std fields for one target variable."""
+    """Dataset of mean/std (+ samples) fields for one target variable."""
 
 
 def _affine_for(dp: DataProcessor, var: str) -> tuple[float, float]:
@@ -44,17 +55,49 @@ def _affine_for(dp: DataProcessor, var: str) -> tuple[float, float]:
     raise ValueError(m)
 
 
+def _linear_interp_weights(old: np.ndarray, new: np.ndarray) -> np.ndarray:
+    """Dense (len(new), len(old)) linear-interpolation weights with the
+    semantics of ``Field._interp_one(dim, new, 'linear')`` (sorted,
+    edge-clamped)."""
+    old = np.asarray(old, np.float64)
+    new = np.asarray(new, np.float64)
+    order = np.argsort(old)
+    old_s = old[order]
+    pos = np.clip(np.searchsorted(old_s, new), 1, len(old_s) - 1)
+    x0, x1 = old_s[pos - 1], old_s[pos]
+    w = np.clip((new - x0) / np.maximum(x1 - x0, 1e-12), 0.0, 1.0)
+    W = np.zeros((len(new), len(old)), np.float64)
+    rows = np.arange(len(new))
+    np.add.at(W, (rows, order[pos - 1]), 1.0 - w)
+    np.add.at(W, (rows, order[pos]), w)
+    return W
+
+
+def _channels(aux) -> list:
+    return list(aux.values()) if isinstance(aux, Dataset) else [aux]
+
+
 class Predictor:
     """Bind (model, data_processor, target variable) into a predict callable.
-    The model's parameters decide the device every request runs on."""
+    The model's parameters decide the device every request runs on.
+
+    ``batch_chunk``: split gridded predictions into chunks of this many
+    tasks (the tail padded by repeating its last task, the pad trimmed), so
+    device memory is bounded by the chunk, not the batch. Mean and std do
+    not depend on the chunking; joint samples draw per-chunk seeds
+    (``seed + chunk offset``) and do."""
 
     def __init__(self, model, data_processor: DataProcessor, target_var,
                  std_scale: float = 1.0, transfer_dtype: Optional[str] = None,
-                 batch_chunk: Optional[int] = None, upload_dtype: Optional[str] = None):
-        for name, v in (("transfer_dtype", transfer_dtype), ("batch_chunk", batch_chunk),
-                        ("upload_dtype", upload_dtype)):
+                 batch_chunk: Optional[int] = None, download_threads: int = 1,
+                 upload_dtype: Optional[str] = None):
+        for name, v in (("transfer_dtype", transfer_dtype), ("upload_dtype", upload_dtype)):
             if v is not None:
-                raise NotImplementedError(f"Predictor({name}=...) is not ported yet")
+                raise NotImplementedError(f"Predictor({name}=...) is not ported")
+        if download_threads != 1:
+            raise NotImplementedError("Predictor(download_threads=...) is not ported")
+        if batch_chunk is not None and batch_chunk < 1:
+            raise ValueError(f"batch_chunk must be >= 1, got {batch_chunk}")
         self.model = model
         self.dp = data_processor
         self.target_vars = [target_var] if isinstance(target_var, str) else list(target_var)
@@ -65,6 +108,7 @@ class Predictor:
                              f"(got {self.target_vars})")
         self.likelihood = model.cfg.make_likelihood()
         self.std_scale = float(std_scale)
+        self.batch_chunk = batch_chunk
 
     @property
     def device(self) -> torch.device:
@@ -88,12 +132,13 @@ class Predictor:
 
         ``aux_at_targets`` is the normalised x-space aux Field/Dataset the
         model was trained with; its channels are resampled onto the
-        prediction grid. ``post_transform(mean, std) -> (mean, std)`` maps
-        the normalised moments before unnormalisation. ``seed`` only
-        matters for samples.
+        prediction grid. ``n_samples > 0`` adds ``samples`` Fields
+        (dims ``("sample", "time", "latitude", "longitude")``), joint over
+        the grid, drawn from a generator seeded with ``seed``.
+        ``post_transform(mean, std) -> (mean, std)`` maps the normalised
+        moments before unnormalisation; it is applied to the samples as
+        ``post_transform(samples, None)``.
         """
-        if n_samples > 0:
-            raise NotImplementedError("joint samples (n_samples > 0) are not ported yet")
         if "mean" not in outputs or not set(outputs) <= {"mean", "std"}:
             raise ValueError(f"outputs must be ('mean','std') or ('mean',); got {outputs}")
         lat = target_elev.coords[target_elev.dims[-2]]
@@ -115,10 +160,8 @@ class Predictor:
             if aux_at_targets is None:
                 raise ValueError("model was trained with aux_at_targets; pass the same "
                                  "normalised aux Dataset/Field to predict_grid")
-            chans = (list(aux_at_targets.values()) if isinstance(aux_at_targets, Dataset)
-                     else [aux_at_targets])
             cols = []
-            for f in chans:
+            for f in _channels(aux_at_targets):
                 g = f._interp_one(f.dims[-2], xt1, "linear")
                 g = g._interp_one(g.dims[-1], xt2, "linear")
                 cols.append(np.nan_to_num(g.data.astype(np.float32)))
@@ -134,14 +177,19 @@ class Predictor:
             if sea2d.any():
                 land = np.flatnonzero(~sea2d.ravel())
 
-        mean, std = self._forward(task, xt1, xt2, aux, outputs, land)
+        mean, std, samples = self._forward_chunked(task, xt1, xt2, aux, n_samples, seed,
+                                                   outputs, land)
         if post_transform is not None:
             mean, std = post_transform(mean, std)
+            if samples is not None:
+                samples, _ = post_transform(samples, None)
         if unnormalise:
             scale, offset = self._affines()
             mean = mean * scale + offset
             if std is not None:
                 std = std * np.abs(scale)
+            if samples is not None:
+                samples = samples * scale + offset
 
         if times is None:
             times = np.arange(task.batch_size)
@@ -155,12 +203,39 @@ class Predictor:
             if std is not None:
                 fields[f"std{suffix}"] = Field(std[..., c].astype(np.float32), dims, coords,
                                                f"std{suffix}", {"variable": var})
+            if samples is not None:
+                fields[f"samples{suffix}"] = Field(
+                    samples[..., c].astype(np.float32), ("sample",) + dims,
+                    {"sample": np.arange(n_samples), **coords}, f"samples{suffix}", {})
         return Prediction(fields)
 
-    def _forward(self, task, xt1, xt2, aux, outputs, land):
-        """Forward + moments on the device; host arrays (B, Ht, Wt, dy),
-        NaN outside ``land`` when given."""
+    def _forward_chunked(self, task, xt1, xt2, aux, n_samples, seed, outputs, land):
+        """:meth:`_forward` over the whole batch, or chunk by chunk into
+        preallocated host maps when ``batch_chunk`` is set and exceeded."""
+        B, chunk = task.batch_size, self.batch_chunk
+        if not chunk or B <= chunk:
+            return self._forward(task, xt1, xt2, aux, n_samples, seed, outputs, land)
+        full = None
+        for off in range(0, B, chunk):
+            idx = np.arange(off, min(off + chunk, B))
+            n = len(idx)
+            idx = np.concatenate([idx, np.full(chunk - n, idx[-1], idx.dtype)])
+            got = self._forward(take(task, idx), xt1, xt2, aux, n_samples, seed + off,
+                                outputs, land)
+            if full is None:
+                full = [None if a is None else
+                        np.empty(a.shape[:-4] + (B,) + a.shape[-3:], np.float32) for a in got]
+            for dst, a in zip(full, got):
+                if a is not None:
+                    dst[..., off:off + n, :, :, :] = a[..., :n, :, :, :]
+        return tuple(full)
+
+    def _forward(self, task, xt1, xt2, aux, n_samples, seed, outputs, land):
+        """Forward, moments and samples on the device; host arrays mean/std
+        (B, Ht, Wt, dy) and samples (n, B, Ht, Wt, dy) or None, NaN outside
+        ``land`` when given."""
         dev = self.device
+        lik = self.likelihood
         B, Ht, Wt = task.batch_size, len(xt1), len(xt2)
         with torch.inference_mode():
             # target-side leaves are unused on the grid path: not uploaded
@@ -173,24 +248,119 @@ class Predictor:
                      torch.from_numpy(aux).to(dev).expand(B, *aux.shape))
             raw = self.model(task, target_grid=(torch.from_numpy(xt1).to(dev),
                                                 torch.from_numpy(xt2).to(dev), aux_d))
-            raw = self.likelihood.rescale_raw(raw, self.std_scale)
-            mean, std = self.likelihood.mean_std(raw)
-            out = {"mean": mean, "std": std}
-            out = {k: v for k, v in out.items() if k in outputs}
+            raw = lik.rescale_raw(raw, self.std_scale).reshape(B, Ht * Wt, -1)
+            mean, std = lik.mean_std(raw)
+            out = {k: v for k, v in (("mean", mean), ("std", std)) if k in outputs}
+            if n_samples > 0:
+                # over the flattened grid, so the gnp head samples jointly
+                gen = torch.Generator(device=dev).manual_seed(int(seed))
+                out["samples"] = lik.sample(raw, gen, n_samples)  # (n, B, Ht·Wt, dy)
             if land is not None:
                 idx = torch.from_numpy(land).to(dev)
-                out = {k: v.reshape(B, Ht * Wt, -1).index_select(1, idx)
-                       for k, v in out.items()}
+                out = {k: v.index_select(-2, idx) for k, v in out.items()}
             host = {k: v.float().cpu().numpy() for k, v in out.items()}
 
         def expand(a):
-            if a is None or land is None:
-                return a
-            full = np.full((B, Ht * Wt, a.shape[-1]), np.nan, np.float32)
-            full[:, land, :] = a
-            return full.reshape(B, Ht, Wt, a.shape[-1])
+            if a is None:
+                return None
+            lead = a.shape[:-2]
+            if land is not None:
+                full = np.full(lead + (Ht * Wt, a.shape[-1]), np.nan, np.float32)
+                full[..., land, :] = a
+                a = full
+            return a.reshape(lead + (Ht, Wt, a.shape[-1]))
 
-        return expand(host["mean"]), expand(host.get("std"))
+        return expand(host["mean"]), expand(host.get("std")), expand(host.get("samples"))
+
+    def predict_points(self, task: TaskBatch, unnormalise: bool = True,
+                       post_transform=None) -> dict[str, np.ndarray]:
+        """Mean/std at ``task.xt`` (the station-holdout path). Arrays of
+        shape (B, M) for single-channel models, (B, M, dy) for dim_yt > 1,
+        NaN where ``task.yt_mask`` is 0; with ``mask`` and, for
+        bernoulli-gamma, the wet probability ``p_wet`` (B, M)."""
+        lik = self.likelihood
+        with torch.inference_mode():
+            raw = lik.rescale_raw(self.model(task.to(self.device)), self.std_scale)
+            mean, std = lik.mean_std(raw)
+            out = {"mean": mean, "std": std}
+            if lik.name == "bernoulli-gamma":
+                # occurrence probability, untouched by the spread rescale
+                out["p_wet"] = torch.sigmoid(raw[..., 0])
+            host = {k: v.cpu().numpy().astype(np.float64) for k, v in out.items()}
+        mean, std = host["mean"], host["std"]
+        if post_transform is not None:
+            mean, std = post_transform(mean, std)
+        if unnormalise:
+            scale, offset = self._affines()
+            mean = mean * scale + offset
+            std = std * np.abs(scale)
+        mask = task.yt_mask.cpu().numpy().astype(bool)
+        mean = np.where(mask[..., None], mean, np.nan)
+        std = np.where(mask[..., None], std, np.nan)
+        if len(self.target_vars) == 1:
+            mean, std = mean[..., 0], std[..., 0]
+        result = {"mean": mean, "std": std, "mask": mask}
+        if "p_wet" in host:
+            result["p_wet"] = np.where(mask, host["p_wet"], np.nan)
+        return result
+
+    def ar_sample_grid(
+        self,
+        task: TaskBatch,
+        target_elev: Field,
+        aux_at_targets=None,
+        n_samples: int = 1,
+        subsample_factor: int = 4,
+        n_blocks: int = 8,
+        unnormalise: bool = True,
+        sea_mask: bool = True,
+        seed: int = 0,
+    ) -> np.ndarray:
+        """Coherent AR samples on the prediction grid: AR runs on every
+        ``subsample_factor``-th cell, then each sampled field is linearly
+        interpolated back onto the full grid. Returns (n_samples, B, Ht, Wt)
+        in physical units ((…, dy) for dim_yt > 1), NaN on sea."""
+        lat = target_elev.coords[target_elev.dims[-2]]
+        lon = target_elev.coords[target_elev.dims[-1]]
+        lat_c = lat[::subsample_factor]
+        lon_c = lon[::subsample_factor]
+        x1c = self.dp.map_x1(lat_c).astype(np.float32)
+        x2c = self.dp.map_x2(lon_c).astype(np.float32)
+        pts = np.stack(np.meshgrid(x1c, x2c, indexing="ij"), -1).reshape(-1, 2)
+        M = len(pts)
+        B = task.batch_size
+        dy = self.model.cfg.dim_yt
+        aux = None
+        if task.yt_aux is not None:
+            A = task.yt_aux.shape[-1]
+            if aux_at_targets is not None:
+                # the aux channels at the coarse AR points, as in training
+                a = np.stack([interp_grid_at_points(f, pts[:, 0], pts[:, 1])
+                              for f in _channels(aux_at_targets)], -1).astype(np.float32)
+                if a.shape[-1] != A:
+                    raise ValueError(f"aux channel mismatch: task has {A}, grid aux has "
+                                     f"{a.shape[-1]}")
+                aux = torch.from_numpy(np.broadcast_to(a[None], (B, M, A)).copy())
+            else:
+                aux = torch.zeros((B, M, A), dtype=torch.float32)
+        coarse = dataclasses.replace(
+            task, xt=torch.from_numpy(np.broadcast_to(pts[None], (B, M, 2)).copy()),
+            yt=None, yt_mask=torch.ones((B, M), dtype=torch.float32), yt_aux=aux)
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        samples = ar_sample(self.model, coarse, n_samples=n_samples, n_blocks=n_blocks,
+                            generator=gen, std_scale=self.std_scale)  # (S, B, M, dy)
+        fields = samples.reshape(n_samples, B, len(lat_c), len(lon_c), dy)
+        # one separable linear upsampling of every (sample, task, channel)
+        w_lat = _linear_interp_weights(lat_c, lat)
+        w_lon = _linear_interp_weights(lon_c, lon)
+        out = np.einsum("hi,sbijc,wj->sbhwc", w_lat, fields, w_lon,
+                        optimize=True).astype(np.float32)
+        if unnormalise:
+            scale, offset = self._affines()
+            out = out * scale + offset
+        if sea_mask:
+            out = np.where(np.isnan(target_elev.data)[..., None], np.nan, out)
+        return out[..., 0] if dy == 1 else out
 
     def _target_stat_name(self, var: Optional[str] = None) -> str:
         """Resolve the DataProcessor stats entry for a target variable."""

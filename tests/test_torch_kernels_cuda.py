@@ -59,6 +59,57 @@ def test_encode_offgrid_kernel(cuda, B, N, C, H, W, ls, p_mask):
     _close(got, setconv.setconv_encode_offgrid(*args))
 
 
+def test_encode_offgrid_with_ar_feedback_slots(cuda):
+    """The AR chain's station set: real points, then feedback slots at
+    x = -1e3 with mask 0, the first of them filled as a chain block does."""
+    from deepsensornz_tpu_torch.infer.ar import _extend_point_context
+    from deepsensornz_tpu_torch.task.task import PointContext
+
+    x1g, x2g, x, y, mask = _points(np.random.default_rng(1), 3, 40, 1, 96, 80, 0.1, cuda)
+    pc = _extend_point_context(PointContext(x, y, mask), 48)
+    pc.x[:, 40:56] = torch.rand((3, 16, 2), device=cuda)
+    pc.y[:, 40:56] = torch.randn((3, 16, 1), device=cuda)
+    pc.mask[:, 40:56] = 1.0
+    args = [x1g, x2g, pc.x, pc.y, pc.mask, 0.03]
+    with torch.no_grad():
+        got = setconv_cuda.encode_offgrid(*args)
+    _close(got, setconv.setconv_encode_offgrid(*args))
+    # the empty slots add exactly nothing
+    with torch.no_grad():
+        filled = setconv_cuda.encode_offgrid(x1g, x2g, pc.x[:, :56].contiguous(),
+                                             pc.y[:, :56].contiguous(),
+                                             pc.mask[:, :56].contiguous(), 0.03)
+    _close(got, filled)
+
+
+def test_sampling_and_ar_run_on_the_card(cuda):
+    """A small model on the card: sampled, chunked and AR requests launch
+    the kernels (B1 once per AR block) and give finite samples."""
+    import chip_smoke as cs
+    from deepsensornz_tpu_torch.infer.ar import ar_sample
+    from deepsensornz_tpu_torch.infer.predict import Predictor
+    from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+
+    cfg = ConvNPConfig(unet_channels=(8, 8), internal_density=40, rank=4, decoder_channels=8,
+                       mlp_hidden=8, compute_dtype="float32")
+    dp = cs.make_processor("t")
+    dem, aux = cs.target_fields(dp, (30, 28), seed=0)
+    task = cs.train_task(0, 3, cfg.internal_density, base_hw=(12, 11), aux_hw=(30, 28),
+                         n_stations=40, n_targets=20)
+    model = cs.build_model(cfg, task, seed=0, device=cuda)
+    setconv_cuda.reset_launch_counts()
+    out = Predictor(model, dp, "t", batch_chunk=2).predict_grid(task, dem, aux_at_targets=aux,
+                                                                n_samples=3, seed=1)
+    assert setconv_cuda.launch_counts()["decode_grid"] == 2  # two chunks
+    land = ~np.isnan(dem.data)
+    assert np.isfinite(out["samples"].data[..., land]).all()
+    before = setconv_cuda.encode_offgrid.launches
+    s = ar_sample(model, task, n_samples=2, n_blocks=4,
+                  generator=torch.Generator(device=cuda).manual_seed(0))
+    assert setconv_cuda.encode_offgrid.launches - before == 2 * 4
+    assert s.shape == (2, 3, 20, 1) and np.isfinite(s).all()
+
+
 def test_encode_offgrid_empty_point_set(cuda):
     args = _points(np.random.default_rng(0), 2, 0, 1, 16, 16, 0.0, cuda) + [0.1]
     got = setconv_cuda.encode_offgrid(*args)

@@ -126,5 +126,12 @@ def test_mixed_heads_moments_rescale_and_body_match_jax(rng, name):
                                          ("cdf_bounds", (torch.zeros(1, 2, 1),)),
                                          ("crps", (torch.zeros(1, 2, 1),))])
 def test_unported_methods_raise(method, args):
+    """The base interface defines no distribution: as in the JAX package,
+    its sampler, cdf and sampled CRPS raise ``NotImplementedError`` (each
+    head's own are held against JAX in tests/test_torch_sampling.py)."""
     with pytest.raises(NotImplementedError):
-        getattr(tlik.get_likelihood("cnp"), method)(torch.zeros(1, 2, 2), *args)
+        getattr(jlik.Likelihood(), method)(jnp.zeros((1, 2, 2)), *args[:1],
+                                           *([jax.random.key(0)] if method == "crps" else
+                                             args[1:]))
+    with pytest.raises(NotImplementedError):
+        getattr(tlik.Likelihood(), method)(torch.zeros(1, 2, 2), *args)

@@ -3,9 +3,11 @@
 A machine with an NVIDIA card may have no jax, flax or the JAX package.
 These tests block those imports in a fresh interpreter, then import every
 module of ``deepsensornz_tpu_torch`` and ``chip_smoke``, serve a tiny
-gridded request on the CPU, and train: one train step and a one-epoch
-``Trainer.fit`` with a checkpoint. The kernel module must also import
-without ``nvcc``: the kernels are built at first use on the card.
+gridded request on the CPU, serve it with samples, in chunks, at points
+and by AR sampling, score every head (``sample``, ``cdf_bounds``,
+``crps``), and train: one train step and a one-epoch ``Trainer.fit`` with
+a checkpoint. The kernel module must also import without ``nvcc``: the
+kernels are built at first use on the card.
 """
 
 import os
@@ -92,6 +94,52 @@ print("trained")
 """)
     assert proc.returncode == 0, proc.stderr
     assert "trained" in proc.stdout
+
+
+def test_port_samples_without_jax():
+    proc = _run(_BLOCKED + """
+import dataclasses
+import numpy as np
+import torch
+import chip_smoke as cs
+from deepsensornz_tpu_torch.infer.ar import ar_sample
+from deepsensornz_tpu_torch.infer.predict import Predictor
+from deepsensornz_tpu_torch.models import likelihoods as lik
+from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+dp = cs.make_processor("t")
+dem, aux = cs.target_fields(dp, (20, 18), seed=0)
+cfg = ConvNPConfig(unet_channels=(8, 8), internal_density=30, rank=4, decoder_channels=8,
+                   mlp_hidden=8, compute_dtype="float32")
+task = cs.train_task(0, 3, cfg.internal_density, base_hw=(9, 8), aux_hw=(20, 18),
+                     n_stations=12, n_targets=10)
+model = cs.build_model(cfg, task, seed=0, device="cpu")
+sea = np.isnan(dem.data)
+pred = Predictor(model, dp, "t", batch_chunk=2).predict_grid(task, dem, aux_at_targets=aux,
+                                                             n_samples=2, seed=1)
+cs.check_prediction(pred, dem, 3)
+s = pred["samples"].data
+assert s.shape == (2, 3, 20, 18) and np.isnan(s[..., sea]).all() and np.isfinite(s[..., ~sea]).all()
+pts = Predictor(model, dp, "t").predict_points(task)
+assert pts["mean"].shape == (3, 10) and np.isfinite(pts["mean"]).all()
+ar = Predictor(model, dp, "t").ar_sample_grid(task, dem, aux_at_targets=aux, subsample_factor=4,
+                                              n_blocks=3)
+assert ar.shape == (1, 3, 20, 18) and np.isfinite(ar[..., ~sea]).all()
+assert ar_sample(model, task, n_blocks=2).shape == (1, 3, 10, 1)
+g = torch.Generator().manual_seed(0)
+for name in ("gnp", "cnp", "bernoulli-gamma", "cnp-spikes-beta"):
+    head = lik.get_likelihood(name)
+    raw = torch.randn((2, 6, head.num_params()), generator=g)
+    y = torch.rand((2, 6, 1), generator=g)
+    assert head.sample(raw, g, 3).shape == (3, 2, 6, 1)
+    lo, hi = head.cdf_bounds(raw, y)
+    assert bool((lo <= hi).all()) and bool(torch.isfinite(head.crps(raw, y, g, 8)).all())
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "deepsensornz_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("sampled")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "sampled" in proc.stdout
 
 
 def test_kernel_module_imports_without_nvcc():

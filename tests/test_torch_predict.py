@@ -10,6 +10,14 @@ processor, task padding) against their JAX originals.
 Tolerance: physical-unit fields agree to rtol 1e-5 with an atol of 1e-5
 times the field's largest magnitude (f32 forward, different summation
 order; unnormalisation multiplies by the target's std).
+
+Samples: JAX and torch draw different numbers from one seed, so the
+sampled paths are held to their own contract here (shapes, sea cells, the
+seed, ``post_transform`` and ``std_scale`` on the samples, per-chunk
+seeds) and to JAX through the mean: ``ar_sample_grid`` with both heads'
+``sample`` patched to return the mean must give JAX's field to the same
+tolerance, loosened to rtol 1e-4 (eight blocks feed their outputs back).
+The heads' own sampling is held against JAX in tests/test_torch_sampling.py.
 """
 
 import dataclasses
@@ -22,15 +30,23 @@ import torch
 from deepsensornz_tpu.data import grid as jgrid
 from deepsensornz_tpu.data.processor import DataProcessor as JProcessor
 from deepsensornz_tpu.data.synthetic import synthetic_bundle
+from deepsensornz_tpu.infer import ar as jar
+from deepsensornz_tpu.infer import predict as jpredict
 from deepsensornz_tpu.infer.predict import Predictor as JPredictor
+from deepsensornz_tpu.models import likelihoods as jlik
 from deepsensornz_tpu.models.convnp import ConvNP as JConvNP
 from deepsensornz_tpu.models.convnp import ConvNPConfig as JConfig
 from deepsensornz_tpu.ops import grids as jgrids
+from deepsensornz_tpu.task import batching as jbatching
 from deepsensornz_tpu.task import task as jtaskmod
-from deepsensornz_tpu.task.loader import TaskLoader
+from deepsensornz_tpu.task.loader import TaskLoader, interp_grid_at_points
 from deepsensornz_tpu_torch.data.grid import Dataset, Field
+from deepsensornz_tpu_torch.data.grid import interp_grid_at_points as t_interp_grid_at_points
 from deepsensornz_tpu_torch.data.processor import DataProcessor
+from deepsensornz_tpu_torch.infer import predict as tpredict
 from deepsensornz_tpu_torch.infer.predict import Predictor
+from deepsensornz_tpu_torch.models import likelihoods as tlik
+from deepsensornz_tpu_torch.task.batching import take
 from deepsensornz_tpu_torch.models.convnp import ConvNP, ConvNPConfig
 from deepsensornz_tpu_torch.ops import grids as tgrids
 from deepsensornz_tpu_torch.task import task as ttaskmod
@@ -74,7 +90,20 @@ def setting(tmp_path_factory):
     model.load_state_dict(params_from_jax(jax.device_get(params)), strict=True)
     return dict(jpred=JPredictor(jmodel, params, jdp, st_col), pred=Predictor(model, dp, st_col),
                 jtask=jtask, task=task, jdem=dem, dem=_field(dem), jaux=dem_n,
-                aux=_field(dem_n), st_col=st_col, model=model, dp=dp)
+                aux=_field(dem_n), st_col=st_col, model=model, dp=dp, jdp=jdp, jcfg=jcfg)
+
+
+def _predictors(s, likelihood, dim_yt=1, **kw):
+    """A JAX ``Predictor`` and the port's over one freshly initialised
+    model with the given head, the same parameters on both sides."""
+    jcfg = dataclasses.replace(s["jcfg"], likelihood=likelihood, dim_yt=dim_yt)
+    jmodel = JConvNP(jcfg)
+    params = jmodel.init(jax.random.key(1), s["jtask"])
+    model = ConvNP.from_task(ConvNPConfig(**dataclasses.asdict(jcfg)), s["task"])
+    model.load_state_dict(params_from_jax(jax.device_get(params)), strict=True)
+    target = s["st_col"] if dim_yt == 1 else [s["st_col"]] * dim_yt
+    return (JPredictor(jmodel, params, s["jdp"], target, **kw),
+            Predictor(model, s["dp"], target, **kw))
 
 
 def _both(s, **kw):
@@ -143,14 +172,191 @@ def test_unnormalisation_is_the_target_affine(setting):
 
 
 @pytest.mark.parametrize("kw,call_kw", [
-    (dict(transfer_dtype="float16"), {}), (dict(batch_chunk=2), {}),
-    (dict(upload_dtype="float16"), {}), ({}, dict(n_samples=4)),
+    (dict(transfer_dtype="float16"), {}), (dict(download_threads=2), {}),
+    (dict(upload_dtype="float16"), {}), (dict(transfer_dtype="int8"), {}),
 ])
 def test_unported_options_raise(setting, kw, call_kw):
+    """The compressed transfer modes and threaded downloads are not ported
+    (samples and batch chunking are: see the tests below)."""
     s = setting
     with pytest.raises(NotImplementedError):
         Predictor(s["model"], s["dp"], s["st_col"], **kw).predict_grid(
             s["task"], s["dem"], aux_at_targets=s["aux"], **call_kw)
+
+
+@pytest.mark.parametrize("likelihood,dim_yt", [("gnp", 1), ("cnp", 2), ("bernoulli-gamma", 1),
+                                               ("cnp-spikes-beta", 1)])
+def test_predict_points_matches_jax(setting, likelihood, dim_yt):
+    """Mean/std (and p_wet for bernoulli-gamma) at the station targets, with
+    a spread rescale: (B, M) arrays for one channel, (B, M, dy) for two, NaN
+    where the target mask is 0."""
+    jp, tp = _predictors(setting, likelihood, dim_yt, std_scale=1.3)
+    a = jp.predict_points(setting["jtask"])
+    b = tp.predict_points(setting["task"])
+    assert set(b) == set(a)
+    assert ("p_wet" in b) == (likelihood == "bernoulli-gamma")
+    np.testing.assert_array_equal(b["mask"], a["mask"])
+    B, M = setting["task"].yt_mask.shape
+    for key in set(a) - {"mask"}:
+        assert b[key].shape == a[key].shape == ((B, M, dim_yt) if dim_yt > 1 and key != "p_wet"
+                                                else (B, M))
+        assert b[key].dtype == np.float64
+        np.testing.assert_array_equal(np.isnan(b[key]), np.isnan(a[key]))
+        _close(b[key], a[key])
+    assert np.isnan(b["mean"][~b["mask"]]).all() and np.isfinite(b["mean"][b["mask"]]).all()
+
+
+def test_sampled_predict_grid_fields(setting):
+    s = setting
+    plain = s["pred"].predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"])
+    out = s["pred"].predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"], n_samples=3,
+                                 times=[4, 5], seed=11)
+    f = out["samples"]
+    assert f.dims == ("sample", "time", "latitude", "longitude")
+    assert f.shape == (3, 2, 48, 48) and f.data.dtype == np.float32
+    np.testing.assert_array_equal(f.coords["sample"], np.arange(3))
+    np.testing.assert_array_equal(f.coords["time"], [4, 5])
+    sea = np.isnan(s["dem"].data)
+    assert np.isnan(f.data[:, :, sea]).all() and np.isfinite(f.data[:, :, ~sea]).all()
+    for key in ("mean", "std"):  # sampling leaves the moments as they were
+        np.testing.assert_allclose(out[key].data, plain[key].data, rtol=1e-6)
+    # the samples vary from draw to draw and from cell to cell
+    assert not np.allclose(f.data[0][:, ~sea], f.data[1][:, ~sea])
+
+
+def test_sampled_predict_grid_seeds(setting):
+    s = setting
+
+    def draw(seed):
+        return s["pred"].predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"],
+                                      n_samples=2, seed=seed)["samples"].data
+
+    a, b, c = draw(3), draw(3), draw(4)
+    np.testing.assert_array_equal(a, b)
+    land = ~np.isnan(s["dem"].data)
+    assert not np.allclose(a[..., land], c[..., land])
+
+
+def test_samples_take_post_transform_and_std_scale(setting):
+    """``post_transform(samples, None)`` maps the normalised samples (a
+    shift by 1 moves the physical samples by the target's std); with
+    ``std_scale=2`` the same seed gives deviations from the mean twice as
+    large (the spread is rescaled before sampling)."""
+    s = setting
+    kw = dict(aux_at_targets=s["aux"], n_samples=4, seed=7)
+    seen = []
+
+    def shift(mean, std):
+        seen.append(std is None)
+        return mean + 1.0, std
+
+    base = s["pred"].predict_grid(s["task"], s["dem"], **kw)
+    shifted = s["pred"].predict_grid(s["task"], s["dem"], post_transform=shift, **kw)
+    assert seen == [False, True]
+    land = ~np.isnan(s["dem"].data)
+    scale = s["dp"].config[s["st_col"]]["params"]["std"]
+    np.testing.assert_allclose(shifted["samples"].data[..., land] - base["samples"].data[..., land],
+                               scale, rtol=1e-4)
+    scaled = Predictor(s["model"], s["dp"], s["st_col"], std_scale=2.0).predict_grid(
+        s["task"], s["dem"], **kw)
+    da = base["samples"].data[..., land] - base["mean"].data[None][..., land]
+    db = scaled["samples"].data[..., land] - scaled["mean"].data[None][..., land]
+    np.testing.assert_allclose(db, 2.0 * da, rtol=1e-4, atol=1e-5 * float(np.abs(da).max()))
+
+
+def test_joint_samples_scatter_around_the_mean(setting):
+    """As tests/test_predict.py holds the JAX sampler: 64 joint samples'
+    z-scores against the mean/std maps are centred with unit spread."""
+    s = setting
+    out = s["pred"].predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"], n_samples=64)
+    land = ~np.isnan(s["dem"].data)
+    z = ((out["samples"].data[:, :, land] - out["mean"].data[None, :, land])
+         / out["std"].data[None, :, land])
+    assert np.isfinite(z).all()
+    assert abs(float(z.mean())) < 0.35
+    assert 0.6 < float(z.std()) < 1.5
+
+
+def test_chunked_predict_matches_unchunked(setting):
+    """Five tasks in chunks of 2 (the tail chunk padded with its last task):
+    mean/std equal the one-batch request and JAX's chunked request; chunk
+    k's samples are those of a one-chunk request seeded ``seed + offset``."""
+    s = setting
+    idx = [0, 1, 0, 1, 0]
+    big, jbig = take(s["task"], idx), jbatching.take(s["jtask"], idx)
+    chunked = Predictor(s["model"], s["dp"], s["st_col"], batch_chunk=2)
+    kw = dict(aux_at_targets=s["aux"], n_samples=2, seed=3)
+    a = s["pred"].predict_grid(big, s["dem"], **kw)
+    b = chunked.predict_grid(big, s["dem"], **kw)
+    j = JPredictor(s["jpred"].model, s["jpred"].params, s["jpred"].dp, s["st_col"],
+                   batch_chunk=2).predict_grid(jbig, s["jdem"], aux_at_targets=s["jaux"])
+    for key in ("mean", "std"):
+        assert b[key].shape == (5, 48, 48)
+        np.testing.assert_allclose(b[key].data, a[key].data, rtol=1e-5,
+                                   atol=1e-5 * float(np.nanmax(np.abs(a[key].data))))
+        _close(b[key].data, j[key].data)
+    assert b["samples"].shape == (2, 5, 48, 48)
+    for off, tasks in ((0, [0, 1]), (2, [0, 1]), (4, [0, 0])):
+        one = s["pred"].predict_grid(take(s["task"], tasks), s["dem"], aux_at_targets=s["aux"],
+                                     n_samples=2, seed=3 + off)
+        n = min(2, 5 - off)
+        np.testing.assert_allclose(b["samples"].data[:, off:off + n], one["samples"].data[:, :n],
+                                   rtol=1e-5, atol=1e-5 * float(np.nanmax(np.abs(one["mean"].data))))
+    with pytest.raises(ValueError):
+        Predictor(s["model"], s["dp"], s["st_col"], batch_chunk=0)
+
+
+def test_ar_sample_grid_fields(setting):
+    s = setting
+    out = s["pred"].ar_sample_grid(s["task"], s["dem"], aux_at_targets=s["aux"], n_samples=2,
+                                   subsample_factor=8, n_blocks=3)
+    assert out.shape == (2, 2, 48, 48)
+    sea = np.isnan(s["dem"].data)
+    assert np.isnan(out[:, :, sea]).all() and np.isfinite(out[:, :, ~sea]).all()
+    assert not np.allclose(out[0][:, ~sea], out[1][:, ~sea])
+    again = s["pred"].ar_sample_grid(s["task"], s["dem"], aux_at_targets=s["aux"], n_samples=2,
+                                     subsample_factor=8, n_blocks=3)
+    np.testing.assert_array_equal(again, out)
+
+
+@pytest.mark.parametrize("kw", [dict(subsample_factor=8, n_blocks=3),
+                                dict(subsample_factor=5, n_blocks=4, unnormalise=False)])
+def test_ar_sample_grid_mean_feedback_matches_jax(setting, monkeypatch, kw):
+    """With both gnp heads' ``sample`` returning the mean and both visit
+    orders the identity, the AR chain is deterministic: the port's field
+    (coarse-grid aux, chain, upsampling, unnormalisation, sea mask) equals
+    JAX's."""
+    s = setting
+    monkeypatch.setattr(jlik.LowRankGaussian, "sample",
+                        lambda self, raw, rng, n: self.mean_std(raw)[0][None])
+    monkeypatch.setattr(tlik.LowRankGaussian, "sample",
+                        lambda self, raw, gen, n: self.mean_std(raw)[0][None])
+    monkeypatch.setattr(jax.random, "permutation", lambda key, m: jax.numpy.arange(m))
+    monkeypatch.setattr(torch, "randperm",
+                        lambda m, generator=None, device=None: torch.arange(m, device=device))
+    jar._chain_fn.cache_clear()  # no chain traced with the real sampler
+    try:
+        jp = JPredictor(s["jpred"].model, s["jpred"].params, s["jpred"].dp, s["st_col"],
+                        std_scale=1.4)
+        tp = Predictor(s["model"], s["dp"], s["st_col"], std_scale=1.4)
+        a = jp.ar_sample_grid(s["jtask"], s["jdem"], aux_at_targets=s["jaux"], **kw)
+        b = tp.ar_sample_grid(s["task"], s["dem"], aux_at_targets=s["aux"], **kw)
+    finally:
+        jar._chain_fn.cache_clear()
+    assert b.shape == a.shape == (1, 2, 48, 48)
+    np.testing.assert_array_equal(np.isnan(b), np.isnan(a))
+    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5 * float(np.nanmax(np.abs(a))))
+
+
+def test_interpolation_helpers_match_jax(rng, setting):
+    old = np.sort(rng.uniform(-1, 1, 9))[::-1]
+    new = np.concatenate([rng.uniform(-1.2, 1.2, 15), old[:3]])
+    np.testing.assert_array_equal(tpredict._linear_interp_weights(old, new),
+                                  jpredict._linear_interp_weights(old, new))
+    f = setting["aux"]
+    x1, x2 = rng.uniform(-0.1, 1.1, 40), rng.uniform(-0.1, 1.1, 40)
+    np.testing.assert_array_equal(t_interp_grid_at_points(f, x1, x2),
+                                  interp_grid_at_points(setting["jaux"], x1, x2))
 
 
 # -- host-side copies against their JAX originals ------------------------------------
