@@ -29,28 +29,47 @@ Phases (one line each; the first failure exits non-zero):
              500, bf16 U-Net, random weights from a seed) behind
              ``Predictor.predict_grid``: three requests of 24 tasks; checks
              the mean/std fields and that both kernels were launched.
-5. sample-serve - one 24-task request with 4 joint samples, twice with one
+5. service - serving from a run directory, as a user does: normalised
+             x-space data (48 hourly times; a 139x130 3-channel base with a
+             time axis, a 278x260 4-channel static aux, 512 stations with
+             ~10 % of the rows missing as context and target, a 556x520
+             1-channel aux at the targets) in the port's ``TaskLoader``
+             (internal grid 608x608); the flagship ConvNP written as a run
+             directory (pickled loader, processor, metadata with
+             ``std_scale`` 0.8, ``params.pt`` and ``params.msgpack``, each
+             loaded by ``load_run`` to the same tensors); then
+             ``PredictService`` over a 2780x2600 DEM coarsened to 278x260:
+             one warm-up and 3 timed ``predict`` calls of 24 times, each
+             split into loader, ``predict_grid`` (wall and CUDA events) and
+             response, each checked (B1 and B2 launched once, the native
+             taskpack built the task, mean/std bitwise equal to a direct
+             ``predict_grid`` on the loader's task, sea cells -9999); B1
+             against its plain version on the loader's own task (24 x its
+             point capacity, per-time padding, missing rows); then
+             ``serve(port=0)`` on a thread: /health, one timed /predict of
+             24 times, a bad request (400). Peak memory.
+6. sample-serve - one 24-task request with 4 joint samples, twice with one
              seed: samples finite on land, NaN on sea, equal between the
              two, their per-cell mean within 4 std/sqrt(4) of the mean map
              on >= 99 % of land cells; then one 48-task request with
              ``batch_chunk=24`` whose mean/std match two 24-task requests.
              Wall and CUDA-event times, peak memory, launches.
-6. ar      - ``ar_sample`` at ``perf/ar_bench.py``'s shape (24 tasks x 512
+7. ar      - ``ar_sample`` at ``perf/ar_bench.py``'s shape (24 tasks x 512
              targets, 8 blocks, one sample): one warm-up and 3 timed
              calls, B1 launched exactly 8 times per call; then one
              ``ar_sample_grid`` of 4 tasks on the 278x260 grid (subsample
              4, 8 blocks): shape, NaN sea, finite land, times.
-7. reference - a small ConvNP on the GPU (kernels) against the same weights
+8. reference - a small ConvNP on the GPU (kernels) against the same weights
              on the CPU (plain versions): ``predict_grid``,
              ``predict_points``, and the AR chain with the head's sample
              replaced by its mean over one visit order.
-8. train-kernels - B1's length-scale backward against its plain version in
+9. train-kernels - B1's length-scale backward against its plain version in
              float64, at the training shape (8x512 stations onto 608x608)
              and the serving shape (24x512), for a random upstream gradient,
              a density-only one and one positive on every channel; twice
              each (the result must not change from run to run). CUDA-event
              times of the kernel and of the plain f32 autograd backward.
-9. train   - the flagship ConvNP's train step at ``perf/train_bench.py``'s
+10. train   - the flagship ConvNP's train step at ``perf/train_bench.py``'s
              shape (batch 8: the serving contexts plus 512 station targets
              with one aux channel; lr 5e-5): one warm-up step and 5 timed
              steps (CUDA events and wall, their median tasks/s), then one
@@ -59,23 +78,30 @@ Phases (one line each; the first failure exits non-zero):
              and uploads included); losses, peak memory; checks finite
              losses, moved parameters, and B1's forward and backward
              launched on every step.
-10. train-reference - one train step of a small ConvNP on the GPU (kernels)
+11. train-reference - one train step of a small ConvNP on the GPU (kernels)
              and on the CPU (plain versions) from the same weights and
              batch: the loss, every parameter's gradient, and the update
              where Adam's first step is well conditioned.
 
 The last two lines are a JSON object of per-kernel results (its launch
-counts are those of the main-path phases: serve, sample-serve, ar and
-train) and the ``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy
+counts are those of the main-path phases: serve, service, sample-serve, ar
+and train) and the ``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy
 and the standard library.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -123,6 +149,12 @@ AR_BLOCKS = 8
 AR_REPS = 3  # timed ar_sample calls, after one warm-up
 AR_GRID_TASKS = 4
 AR_SUBSAMPLE = 4
+SERVICE_TIMES = 48  # hourly times in the service's data
+SERVICE_REQUESTS = 3  # timed, after one warm-up
+DEM_FACTOR = 10  # the 2780x2600 DEM coarsens to the 278x260 grid
+HIGHRES_HW = (556, 520)  # the aux sampled at the targets
+MISSING_ROWS = 0.1  # share of station rows absent
+STD_SCALE = 0.8  # the run's recalibration factor
 # the least time the card could take: FLOPs at the dense TF32 tensor-core
 # rate (the fastest the card multiplies f32 operands) or bytes at the HBM
 # rate, whichever is larger (H100 SXM data sheet, at a 700 W limit)
@@ -307,8 +339,6 @@ def train_task(seed: int, n_tasks: int, density: float, base_hw=(139, 130),
     """Training inputs (``perf/train_bench.py``'s shape): the serving
     cycle's context sets plus ``n_targets`` station targets per task, each
     with one aux channel."""
-    import dataclasses
-
     import torch
 
     rng = np.random.default_rng(seed + 1000)
@@ -360,8 +390,296 @@ def timed(fn):
     return out, start.elapsed_time(end), time.perf_counter() - t0
 
 
+def service_data(seed: int, n_times: int = SERVICE_TIMES, base_hw=(139, 130),
+                 aux_hw=TARGET_HW, highres_hw=HIGHRES_HW, n_stations: int = N_STATIONS,
+                 target_var: str = "temperature_station"):
+    """Normalised x-space data over [0, 1]^2 at ``n_times`` hourly times: a
+    3-channel base Dataset with a time axis, a 4-channel static aux Dataset,
+    a 1-channel highres aux Field and a StationFrame with ``MISSING_ROWS``
+    of its rows absent. Returns (times, base, aux, highres, stations)."""
+    from deepsensornz_tpu_torch.data.frame import StationFrame
+    from deepsensornz_tpu_torch.data.grid import Dataset, Field
+
+    rng = np.random.default_rng(seed)
+    times = np.datetime64("2024-01-01T00:00:00") + np.arange(n_times) * np.timedelta64(1, "h")
+
+    def grid(hw, name, with_time):
+        shape = ((n_times,) if with_time else ()) + tuple(hw)
+        coords = {"x1": np.linspace(0.0, 1.0, hw[0]), "x2": np.linspace(0.0, 1.0, hw[1])}
+        dims = ("time", "x1", "x2") if with_time else ("x1", "x2")
+        if with_time:
+            coords["time"] = times
+        return Field(rng.normal(size=shape).astype(np.float32), dims, coords, name)
+
+    base = Dataset([grid(base_hw, f"base_{i}", True) for i in range(3)])
+    aux = Dataset([grid(aux_hw, f"aux_{i}", False) for i in range(4)])
+    highres = grid(highres_hw, "elevation", False)
+    xy = rng.random((n_stations, 2))
+    sid = np.tile(np.arange(n_stations), n_times)
+    keep = rng.random(len(sid)) >= MISSING_ROWS
+    sid = sid[keep]
+    stations = StationFrame({
+        "time": np.repeat(times, n_stations)[keep], "station_id": sid,
+        "x1": xy[sid, 0], "x2": xy[sid, 1], target_var: rng.normal(size=len(sid))})
+    return times, base, aux, highres, stations
+
+
+def write_run(run_dir: Path, task_loader, dp, model, variable: str = "temperature") -> None:
+    """A run directory in the JAX package's layout: the pickled loader,
+    the processor, metadata (``model_config``, the variable, ``std_scale``)
+    and the parameters as ``params.pt`` and ``params.msgpack``."""
+    from deepsensornz_tpu_torch.train.checkpoint import save_checkpoint
+
+    run_dir.mkdir(parents=True, exist_ok=True)
+    with open(run_dir / "task_loader.pkl", "wb") as f:
+        pickle.dump(task_loader, f)
+    dp.save(str(run_dir / "data_processor.json"))
+    mc = {k: (list(v) if isinstance(v, tuple) else v)
+          for k, v in dataclasses.asdict(model.cfg).items() if k != "mesh_axes"}
+    save_checkpoint(str(run_dir), model.state_dict(), flax_upsample=model.cfg.upsample,
+                    metadata={"model_config": mc, "data_settings": {"variable": variable},
+                              "std_scale": STD_SCALE})
+
+
+class Timed:
+    """A callable's stand-in that keeps each call's result, wall time and,
+    with ``cuda_events``, CUDA-event time; other attributes pass through."""
+
+    def __init__(self, fn, cuda_events: bool = False):
+        self.fn, self.cuda_events, self.calls = fn, cuda_events, []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        if self.cuda_events:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        wall = time.perf_counter() - t0
+        ms = None
+        if self.cuda_events:
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        self.calls.append({"out": out, "wall_s": wall, "ms": ms})
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+
+def service_phase(dev, cfg, dp, target_var, setconv_cuda, device=None) -> dict:
+    """Phase 5: a run directory served by ``PredictService`` and ``serve``;
+    returns the launch counts of the service's requests."""
+    import torch
+
+    from deepsensornz_tpu_torch.infer.server import PredictService, serve
+    from deepsensornz_tpu_torch.native import taskpack
+    from deepsensornz_tpu_torch.pipeline.validate import load_run
+    from deepsensornz_tpu_torch.task.loader import TaskLoader
+
+    if not taskpack.available():
+        raise AssertionError(f"the native taskpack did not build: {taskpack.build_error()}")
+    times, base, aux, highres, stations = service_data(50, target_var=target_var)
+    tl = TaskLoader([base, aux, stations], stations, aux_at_targets=highres,
+                    internal_density=cfg.internal_density)
+    say("service", f"loader: {len(stations)} station rows over {len(times)} times, capacity "
+        f"{tl.point_capacity}; internal grid {len(tl.x1g)}x{len(tl.x2g)}")
+    if (len(tl.x1g), len(tl.x2g)) != (608, 608) and cfg.internal_density == 500:
+        raise AssertionError("the loader's internal grid is not [serve]'s 608x608")
+    model = build_model(cfg, tl(list(times[:1])), seed=7, device="cpu")
+    dem, _ = target_fields(dp, (TARGET_HW[0] * DEM_FACTOR, TARGET_HW[1] * DEM_FACTOR), seed=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = Path(tmp) / "run"
+        t0 = time.perf_counter()
+        write_run(run_dir, tl, dp, model)
+        write_s = time.perf_counter() - t0
+        msgpack_dir = Path(tmp) / "run_msgpack"
+        shutil.copytree(run_dir, msgpack_dir, ignore=shutil.ignore_patterns("params.pt"))
+        t0 = time.perf_counter()
+        from_pt = load_run(str(run_dir), device=device)["params"]
+        load_s = time.perf_counter() - t0
+        from_msgpack = load_run(str(msgpack_dir), device=device)["params"]
+        same = all(torch.equal(from_pt[k], from_msgpack[k]) and
+                   torch.equal(from_pt[k].cpu(), v) for k, v in model.state_dict().items())
+        sizes = {p.name: p.stat().st_size for p in run_dir.iterdir()}
+        say("service", f"run directory written in {write_s:.3f} s ({sizes}); load_run "
+            f"{load_s:.3f} s; params.pt and params.msgpack load to identical state_dicts: {same}")
+        if not same or set(from_pt) != set(from_msgpack):
+            raise AssertionError("load_run gave different parameters from params.pt and "
+                                 "params.msgpack")
+        del from_pt, from_msgpack
+
+        svc = PredictService(str(run_dir), dem, highres_factor=DEM_FACTOR, device=device)
+        loader = svc.run["task_loader"] = Timed(svc.run["task_loader"])
+        forward = svc.predictor.predict_grid = Timed(svc.predictor.predict_grid,
+                                                     cuda_events=True)
+        sea = np.isnan(svc.pred_grid.data)
+        if svc.pred_grid.shape != TARGET_HW or svc.predictor.std_scale != STD_SCALE:
+            raise AssertionError(f"prediction grid {svc.pred_grid.shape}, std_scale "
+                                 f"{svc.predictor.std_scale}")
+        n = len(times)
+        windows = [times[i: i + N_TASKS] for i in (0, n // 2, 0, n // 4)]  # warm-up, then timed
+        totals = dict.fromkeys(setconv_cuda.launch_counts(), 0)
+        responses, rows = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i, window in enumerate(windows):
+            req = [str(t) for t in window]
+            setconv_cuda.reset_launch_counts()
+            taskpack.reset_call_counts()
+            t0 = time.perf_counter()
+            resp = svc.predict(req)
+            total_s = time.perf_counter() - t0
+            launches, packed = setconv_cuda.launch_counts(), taskpack.call_counts()
+            for k, v in launches.items():
+                totals[k] += v
+            task, fwd = loader.calls[-1]["out"], forward.calls[-1]
+            direct = forward.fn(task, svc.pred_grid, aux_at_targets=loader.aux_at_targets,
+                                times=np.asarray(window))
+            checks = {}
+            for key in ("mean", "std"):
+                got = np.asarray(resp[key], np.float32)
+                want = np.nan_to_num(direct[key].data, nan=-9999.0)
+                checks[key] = (got.shape == (N_TASKS,) + TARGET_HW
+                               and got.tobytes() == want.tobytes()
+                               and bool(((got == -9999.0) == sea).all()))
+            row = {"loader_s": loader.calls[-1]["wall_s"], "forward_s": fwd["wall_s"],
+                   "forward_ms": fwd["ms"],
+                   "response_s": total_s - loader.calls[-1]["wall_s"] - fwd["wall_s"],
+                   "total_s": total_s}
+            say("service", f"predict {i}{' (warm-up)' if i == 0 else ''} ({N_TASKS} times "
+                f"from {req[0]}): {total_s:.3f} s wall = loader {row['loader_s']:.4f} s + "
+                f"predict_grid {row['forward_s']:.4f} s ({row['forward_ms']:.1f} ms CUDA events) "
+                f"+ response {row['response_s']:.4f} s; launches {launches}; native taskpack "
+                f"calls {packed}; bitwise equal to a direct predict_grid with sea -9999: {checks}")
+            if launches["encode_offgrid"] != 1 or launches["decode_grid"] != 1:
+                raise AssertionError(f"request {i} launched {launches}, not B1 and B2 once")
+            if packed != {"pack_station_batches": 2, "interp_grid_points": 1}:
+                raise AssertionError(f"request {i}: the native taskpack did not build the task "
+                                     f"({packed})")
+            if not all(checks.values()):
+                raise AssertionError(f"request {i}: the response differs from predict_grid")
+            responses.append(resp)
+            if i:
+                rows.append(row)
+        peak = torch.cuda.max_memory_allocated(dev)
+        med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+        say("service", f"median of {SERVICE_REQUESTS} requests: {med['total_s']:.3f} s wall = "
+            f"loader {med['loader_s']:.4f} s + predict_grid {med['forward_s']:.4f} s "
+            f"({med['forward_ms']:.1f} ms CUDA events) + response {med['response_s']:.4f} s; "
+            f"peak memory {peak / 2**30:.2f} GiB")
+        # outside the counted requests: B1 at the loader's own shape
+        b1_err = encode_check(svc.predictor.model, loader.calls[1]["out"].to(dev))
+        stack_timing(aux)
+
+        httpd = serve(str(run_dir), dem, port=0, highres_factor=DEM_FACTOR, device=device)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            with urllib.request.urlopen(f"{url}/health", timeout=120) as r:
+                health = json.loads(r.read())
+            body = json.dumps({"times": responses[1]["times"]}).encode()
+            setconv_cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"{url}/predict", data=body,
+                    headers={"Content-Type": "application/json"}), timeout=600) as r:
+                status, raw = r.status, r.read()
+            http_s = time.perf_counter() - t0
+            launches = setconv_cuda.launch_counts()
+            for k, v in launches.items():
+                totals[k] += v
+            got = json.loads(raw)
+            try:
+                urllib.request.urlopen(urllib.request.Request(
+                    f"{url}/predict", data=b'{"times": []}'), timeout=120)
+                bad = 200
+            except urllib.error.HTTPError as e:
+                bad = e.code
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=60)
+        same = got == responses[1]
+        say("service", f"HTTP: /health {health}; POST /predict ({N_TASKS} times) {status} in "
+            f"{http_s:.3f} s wall ({len(raw) / 2**20:.1f} MiB of JSON), equal to the service's "
+            f"response {same}; launches {launches}; bad request {bad}")
+        if health != {"status": "ok", "variable": "temperature"} or status != 200 or not same:
+            raise AssertionError("the HTTP round trip failed")
+        if launches["encode_offgrid"] != 1 or launches["decode_grid"] != 1:
+            raise AssertionError(f"the HTTP request launched {launches}, not B1 and B2 once")
+        if bad != 400:
+            raise AssertionError(f"a bad request got {bad}, not 400")
+        if thread.is_alive():
+            raise AssertionError("the HTTP server thread did not stop")
+    say("service", f"launches {totals}")
+    return totals, b1_err
+
+
+def stack_timing(aux, reps: int = TIMING_REPS) -> None:
+    """Host time of the loader's two ways to stack the static aux grid's
+    channels, broadcast over a request's times, into a tensor: ``np.stack``
+    (whose result from broadcast views is not C-contiguous, so the tensor
+    needs a second copy) and ``_stack_channels``; medians of ``reps``."""
+    import torch
+
+    from deepsensornz_tpu_torch.task.loader import _grid_channels, _stack_channels
+
+    chans = [np.broadcast_to(np.nan_to_num(f.data.astype(np.float32)), (N_TASKS,) + f.data.shape)
+             for f in _grid_channels(aux)]
+    ways = {"np.stack + ascontiguousarray":
+            lambda: torch.from_numpy(np.ascontiguousarray(np.stack(chans, -1))),
+            "_stack_channels": lambda: torch.from_numpy(_stack_channels(chans))}
+    out, ms = {}, {}
+    for name, fn in ways.items():
+        times = []
+        for _ in range(1 + reps):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms[name] = float(np.median(times[1:]))
+    a, b = out.values()
+    say("service", f"static aux stack {tuple(b.shape)} ({b.numel() * 4 / 1e6:.1f} MB), host, "
+        f"median of {reps}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+        + f"; equal {torch.equal(a, b)}")
+    if not torch.equal(a, b):
+        raise AssertionError("_stack_channels differs from np.stack")
+
+
+def encode_check(model, task) -> float:
+    """B1 against its plain version on each station set of a task the
+    service's loader built (its point capacity, per-time padding and
+    missing rows), with the model's own length scales; returns the largest
+    error. These launches are not counted: the caller reads its counts
+    before this runs and resets them after."""
+    import torch
+
+    from deepsensornz_tpu_torch.ops import setconv, setconv_cuda
+
+    worst = 0.0
+    with torch.inference_mode():
+        for i, p in enumerate(task.points):
+            args = (task.x1g, task.x2g, p.x, p.y, p.mask, model.lengthscale(f"ls_points_{i}"))
+            got = setconv_cuda.encode_offgrid(*args)
+            torch.cuda.synchronize()
+            cmp = compare(got, setconv.setconv_encode_offgrid(*args), RTOL, ATOL_FRAC)
+            say("service", f"encode_offgrid at the loader's shape {tuple(p.x.shape)} "
+                f"({int(p.mask.sum())} of {p.mask.numel()} slots filled) -> {tuple(got.shape)}: "
+                f"max_abs_err {cmp['max_abs_err']:.3e} max_rel_err {cmp['max_rel_err']:.3e} "
+                f"(rtol {RTOL}, atol {cmp['atol']:.3e})")
+            if not cmp["ok"]:
+                raise AssertionError("encode_offgrid disagrees with its plain version at the "
+                                     "service loader's shape")
+            worst = max(worst, cmp["max_abs_err"])
+    return worst
+
+
 def sample_serve(dev, model, dp, dem, aux_field, target_var, setconv_cuda) -> dict:
-    """Phase 5: a sampled 24-task request (twice, one seed) and a chunked
+    """Phase 6: a sampled 24-task request (twice, one seed) and a chunked
     48-task request against two unchunked ones; returns the launch counts."""
     import torch
 
@@ -428,7 +746,7 @@ def sample_serve(dev, model, dp, dem, aux_field, target_var, setconv_cuda) -> di
 
 
 def ar_phase(dev, model, dp, dem, aux_field, target_var, setconv_cuda) -> dict:
-    """Phase 6: ar_sample at perf/ar_bench.py's shape, then ar_sample_grid
+    """Phase 7: ar_sample at perf/ar_bench.py's shape, then ar_sample_grid
     on the NZ grid; returns the launch counts."""
     import torch
 
@@ -578,12 +896,10 @@ def kernel_checks(dev, model, dp, dem, task0) -> dict:
 
 
 def serve_reference(dev, dp, target_var) -> None:
-    """Phase 7: a small ConvNP on the GPU (kernels) against the same weights
+    """Phase 8: a small ConvNP on the GPU (kernels) against the same weights
     on the CPU (plain versions): ``predict_grid``, ``predict_points``, and
     the AR chain over one visit order with the head's sample replaced by
     its mean (deterministic, so both devices must agree)."""
-    import dataclasses
-
     import torch
 
     from deepsensornz_tpu_torch.infer import ar
@@ -634,7 +950,7 @@ def serve_reference(dev, dp, target_var) -> None:
 
 
 def train_kernels(dev, model, setconv, setconv_cuda) -> dict:
-    """Phase 6: B1's backward against its plain version in float64 at the
+    """Phase 9: B1's backward against its plain version in float64 at the
     training and serving shapes; returns the training shape's numbers."""
     import torch
 
@@ -692,7 +1008,7 @@ def train_kernels(dev, model, setconv, setconv_cuda) -> dict:
 
 
 def train_flagship(dev, model, cfg, setconv_cuda) -> dict:
-    """Phase 7: the flagship train step at perf/train_bench.py's shape;
+    """Phase 10: the flagship train step at perf/train_bench.py's shape;
     returns the launch counts of the run."""
     import torch
 
@@ -747,7 +1063,7 @@ def train_flagship(dev, model, cfg, setconv_cuda) -> dict:
 
 
 def train_reference(dev, setconv_cuda) -> None:
-    """Phase 8: a small train step on the GPU (kernels) against the CPU
+    """Phase 11: a small train step on the GPU (kernels) against the CPU
     (plain versions) from the same weights and batch."""
     import torch
 
@@ -881,6 +1197,9 @@ def main() -> int:
         if serve_counts[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the serving path")
 
+    service_counts, b1_err = service_phase(dev, cfg, dp, target_var, setconv_cuda)
+    results["encode_offgrid"]["max_abs_err"] = max(results["encode_offgrid"]["max_abs_err"],
+                                                   b1_err)
     sample_counts = sample_serve(dev, model, dp, dem, aux_field, target_var, setconv_cuda)
     ar_counts = ar_phase(dev, model, dp, dem, aux_field, target_var, setconv_cuda)
     serve_reference(dev, dp, target_var)
@@ -889,8 +1208,8 @@ def main() -> int:
     train_counts = train_flagship(dev, model, cfg, setconv_cuda)
     train_reference(dev, setconv_cuda)
 
-    phases = {"serve": serve_counts, "sample-serve": sample_counts, "ar": ar_counts,
-              "train": train_counts}
+    phases = {"serve": serve_counts, "service": service_counts, "sample-serve": sample_counts,
+              "ar": ar_counts, "train": train_counts}
     launches = {name: sum(c[name] for c in phases.values()) for name in KERNELS}
     say("launches", "; ".join(f"{k} {v}" for k, v in phases.items()))
     print(json.dumps({"kernels": [

@@ -1,0 +1,85 @@
+"""``StationFrame``: a station table without pandas.
+
+The JAX package's ``TaskLoader`` reads its station sets as pandas
+DataFrames; the port keeps them as an ordered mapping from column name to a
+1-D numpy array, all of one length, with ``time`` stored as
+``datetime64[s]``. It has exactly the operations the loader needs: the
+column names, the length, a column by name, row selection by position
+(``take``, pandas' ``iloc``), the largest number of rows at one time
+(``groupby("time").size().max()``) and ``to_numpy`` of some columns.
+:meth:`StationFrame.from_pandas` converts a DataFrame where pandas exists;
+nothing here imports pandas.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+
+
+class StationFrame:
+    """Columns of equal length; ``time`` as ``datetime64[s]``."""
+
+    def __init__(self, columns: Mapping[str, np.ndarray]):
+        cols = {str(k): np.asarray(v) for k, v in columns.items()}
+        lengths = {len(v) for v in cols.values()}
+        if len(lengths) > 1:
+            raise ValueError(f"columns differ in length: {sorted(lengths)}")
+        if any(v.ndim != 1 for v in cols.values()):
+            raise ValueError("every column must be 1-D")
+        if "time" in cols:
+            cols["time"] = cols["time"].astype("datetime64[s]")
+        self._cols = cols
+        self._len = lengths.pop() if lengths else 0
+
+    @classmethod
+    def from_pandas(cls, df) -> "StationFrame":
+        """The columns of a pandas DataFrame, in its order and dtypes (the
+        index is dropped: the loader selects rows by position)."""
+        return cls({c: df[c].to_numpy() for c in df.columns})
+
+    @property
+    def columns(self) -> list[str]:
+        return list(self._cols)
+
+    def __len__(self) -> int:
+        return self._len
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self._cols[name]
+
+    def take(self, idx) -> "StationFrame":
+        """The rows at the integer positions ``idx``, in that order."""
+        idx = np.asarray(idx, dtype=np.intp)
+        return StationFrame({k: v[idx] for k, v in self._cols.items()})
+
+    def max_rows_per_time(self) -> int:
+        """The most rows that share one (non-NaT) time; 0 when empty."""
+        t = self._cols["time"]
+        t = t[~np.isnat(t)]
+        return int(np.unique(t, return_counts=True)[1].max()) if len(t) else 0
+
+    def to_numpy(self, cols: Sequence[str], dtype=np.float32) -> np.ndarray:
+        """(len, len(cols)) array of the named columns, each cast to ``dtype``."""
+        if not cols:
+            return np.empty((self._len, 0), dtype)
+        return np.stack([self._cols[c].astype(dtype) for c in cols], -1)
+
+    def __repr__(self):
+        return f"<StationFrame {self._len} rows, columns {self.columns}>"
+
+
+def frame_value_cols(frame: StationFrame) -> list[str]:
+    """The numeric columns outside the coordinate/metadata set, in frame
+    order (``bool`` is not numeric here)."""
+    skip = {"time", "x1", "x2", "station_id", "station_name", "elevation",
+            "latitude", "longitude"}
+    return [c for c in frame.columns
+            if c not in skip and np.issubdtype(frame[c].dtype, np.number)]
+
+
+def is_pandas_frame(obj) -> bool:
+    """True for a pandas DataFrame, found without importing pandas."""
+    t = type(obj)
+    return t.__name__ == "DataFrame" and t.__module__.split(".")[0] == "pandas"

@@ -1,9 +1,10 @@
-"""Batch-axis selection and padding for TaskBatches.
+"""Batch-axis selection, concatenation and padding for TaskBatches.
 
-Counterpart of ``take`` in ``deepsensornz_tpu/task/batching.py`` and
-``pad_batch_to_multiple`` in ``deepsensornz_tpu/parallel/mesh.py``. Only the
-batched fields are touched; the grid coordinate vectors are shared by every
-task and pass through unchanged.
+Counterpart of ``take`` and ``concat`` in
+``deepsensornz_tpu/task/batching.py`` and ``pad_batch_to_multiple`` in
+``deepsensornz_tpu/parallel/mesh.py``. Only the batched fields are touched;
+the grid coordinate vectors are shared by every task and pass through
+unchanged (``concat`` keeps the first batch's).
 """
 
 from __future__ import annotations
@@ -33,6 +34,25 @@ def take(task: TaskBatch, idx) -> TaskBatch:
     if not isinstance(idx, torch.Tensor):
         idx = torch.from_numpy(np.asarray(idx, dtype=np.int64))
     return _map_batched(task, lambda t: t[idx.to(t.device)])
+
+
+def concat(tasks: list[TaskBatch]) -> TaskBatch:
+    """The batches one after another along the batch axis."""
+    t0 = tasks[0]
+
+    def cat(getter):
+        vals = [getter(t) for t in tasks]
+        return None if vals[0] is None else torch.cat(vals, dim=0)
+
+    return TaskBatch(
+        grids=tuple(GridContext(g.x1, g.x2, cat(lambda t: t.grids[i].y),
+                                cat(lambda t: t.grids[i].mask))
+                    for i, g in enumerate(t0.grids)),
+        points=tuple(PointContext(cat(lambda t: t.points[i].x), cat(lambda t: t.points[i].y),
+                                  cat(lambda t: t.points[i].mask))
+                     for i in range(len(t0.points))),
+        xt=cat(lambda t: t.xt), yt=cat(lambda t: t.yt), yt_mask=cat(lambda t: t.yt_mask),
+        yt_aux=cat(lambda t: t.yt_aux), x1g=t0.x1g, x2g=t0.x2g)
 
 
 def pad_batch_to_multiple(task: TaskBatch, multiple: int) -> tuple[TaskBatch, int]:

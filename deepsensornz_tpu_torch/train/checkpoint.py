@@ -5,9 +5,12 @@ Counterpart of ``deepsensornz_tpu/train/checkpoint.py``. A checkpoint
 directory holds ``params.pt`` and ``opt_state.pt`` (``torch.save`` of
 plain dicts of CPU tensors, read back with ``weights_only=True``) and
 ``metadata.json`` in the JAX package's schema (``step`` plus the caller's
-metadata). Every file is written atomically. Reading the JAX package's
-``params.msgpack`` is not carried over yet (the card's machine has no
-msgpack); its trees convert with the functions below.
+metadata). Every file is written atomically. Where ``params.pt`` is absent,
+:func:`load_checkpoint` reads the JAX package's ``params.msgpack`` (with the
+codec in :mod:`.msgpack`, no msgpack package needed), and
+:func:`save_checkpoint` writes one on request, so a run trained on either
+side serves on the other. The JAX ``opt_state.msgpack`` is not read: a JAX
+optimizer state converts with :func:`opt_state_from_jax`.
 
 :func:`params_from_jax` turns a flax ConvNP parameter tree (nested dicts of
 arrays, e.g. ``jax.device_get(params)``) into the port's ``state_dict``, and
@@ -36,7 +39,10 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from deepsensornz_tpu_torch.train import msgpack
+
 PARAMS_FILE = "params.pt"
+JAX_PARAMS_FILE = "params.msgpack"
 OPT_FILE = "opt_state.pt"
 META_FILE = "metadata.json"
 
@@ -158,10 +164,15 @@ def _torch_bytes(tree) -> bytes:
 
 def save_checkpoint(ckpt_dir: str, params: Mapping[str, torch.Tensor],
                     opt_state: Optional[dict] = None, step: int = 0,
-                    metadata: Optional[dict[str, Any]] = None) -> None:
+                    metadata: Optional[dict[str, Any]] = None,
+                    flax_upsample: Optional[str] = None) -> None:
     """Write params (+ optimizer state) and metadata atomically into
-    ``ckpt_dir``."""
+    ``ckpt_dir``. With ``flax_upsample`` (the model's ``cfg.upsample``) the
+    params are also written as the JAX package's ``params.msgpack``."""
     _atomic_write(os.path.join(ckpt_dir, PARAMS_FILE), _torch_bytes(dict(params)))
+    if flax_upsample is not None:
+        _atomic_write(os.path.join(ckpt_dir, JAX_PARAMS_FILE),
+                      msgpack.packb(params_to_jax(params, flax_upsample)))
     if opt_state is not None:
         _atomic_write(os.path.join(ckpt_dir, OPT_FILE), _torch_bytes(opt_state))
     meta = {"step": int(step), **(metadata or {})}
@@ -182,11 +193,20 @@ def update_metadata(ckpt_dir: str, **updates) -> dict:
     return meta
 
 
-def load_checkpoint(ckpt_dir: str, map_location="cpu") -> dict[str, Any]:
+def load_checkpoint(ckpt_dir: str, map_location="cpu",
+                    upsample: str = "transpose") -> dict[str, Any]:
     """{"params", and where present "opt_state" and "metadata"}, tensors on
-    ``map_location``."""
-    out: dict[str, Any] = {"params": torch.load(os.path.join(ckpt_dir, PARAMS_FILE),
-                                                map_location=map_location, weights_only=True)}
+    ``map_location``. The params come from ``params.pt``, or else from the
+    JAX package's ``params.msgpack`` through :func:`params_from_jax` with
+    the model's ``upsample``."""
+    pt_path = os.path.join(ckpt_dir, PARAMS_FILE)
+    if os.path.exists(pt_path):
+        params = torch.load(pt_path, map_location=map_location, weights_only=True)
+    else:
+        with open(os.path.join(ckpt_dir, JAX_PARAMS_FILE), "rb") as f:
+            tree = msgpack.unpackb(f.read())
+        params = {k: v.to(map_location) for k, v in params_from_jax(tree, upsample).items()}
+    out: dict[str, Any] = {"params": params}
     opt_path = os.path.join(ckpt_dir, OPT_FILE)
     if os.path.exists(opt_path):
         out["opt_state"] = torch.load(opt_path, map_location=map_location, weights_only=True)

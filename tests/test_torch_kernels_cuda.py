@@ -239,3 +239,22 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         setconv_cuda.decode_grid(x1g, x2g, f.transpose(1, 2), x1g, x2g, 0.1)
     with pytest.raises(TypeError):
         setconv_cuda.decode_grid(x1g, x2g, f.double(), x1g, x2g, 0.1)
+
+
+def test_encode_matches_plain_on_a_loader_task(cuda):
+    """B1 against its plain version on a task the port's TaskLoader packed
+    (its point capacity, per-time padding and missing rows), as the chip
+    script's service phase checks it at the flagship size."""
+    import chip_smoke as cs
+    from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+    from deepsensornz_tpu_torch.task.loader import TaskLoader
+
+    times, base, aux, highres, stations = cs.service_data(
+        0, n_times=6, base_hw=(9, 8), aux_hw=(20, 18), highres_hw=(24, 22), n_stations=40)
+    tl = TaskLoader([base, aux, stations], stations, aux_at_targets=highres, internal_density=30)
+    cfg = ConvNPConfig(unet_channels=(8, 8), internal_density=30, rank=4, decoder_channels=8,
+                       mlp_hidden=8, compute_dtype="float32")
+    task = tl(list(times[:4]))
+    model = cs.build_model(cfg, task, seed=0, device=cuda)
+    assert task.points[0].x.shape[1] == tl.point_capacity
+    assert cs.encode_check(model, task.to(cuda)) >= 0.0

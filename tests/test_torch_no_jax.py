@@ -1,13 +1,16 @@
 """The port runs where JAX does not exist.
 
-A machine with an NVIDIA card may have no jax, flax or the JAX package.
-These tests block those imports in a fresh interpreter, then import every
-module of ``deepsensornz_tpu_torch`` and ``chip_smoke``, serve a tiny
-gridded request on the CPU, serve it with samples, in chunks, at points
-and by AR sampling, score every head (``sample``, ``cdf_bounds``,
-``crps``), and train: one train step and a one-epoch ``Trainer.fit`` with
-a checkpoint. The kernel module must also import without ``nvcc``: the
-kernels are built at first use on the card.
+A machine with an NVIDIA card may have no jax, flax, pandas, msgpack or the
+JAX package. These tests block those imports in a fresh interpreter, then
+import every module of ``deepsensornz_tpu_torch`` and ``chip_smoke``, serve
+a tiny gridded request on the CPU, serve it with samples, in chunks, at
+points and by AR sampling, score every head (``sample``, ``cdf_bounds``,
+``crps``), train (one train step and a one-epoch ``Trainer.fit`` with a
+checkpoint), and serve a run directory: a ``TaskLoader`` over
+``StationFrame`` objects, the run written with ``params.pt`` and
+``params.msgpack``, one ``PredictService.predict`` and one HTTP round trip.
+The kernel module must also import without ``nvcc``: the kernels are built
+at first use on the card.
 """
 
 import os
@@ -22,6 +25,8 @@ import sys
 for name in ("jax", "jaxlib", "flax", "optax", "deepsensornz_tpu"):
     sys.modules[name] = None  # any import of them raises ImportError
 """
+# the card's machine has neither pandas nor msgpack either
+_BLOCKED_ALL = _BLOCKED.replace('"deepsensornz_tpu")', '"deepsensornz_tpu", "pandas", "msgpack")')
 
 _SERVE = _BLOCKED + """
 import importlib, pkgutil
@@ -140,6 +145,62 @@ print("sampled")
 """)
     assert proc.returncode == 0, proc.stderr
     assert "sampled" in proc.stdout
+
+
+def test_port_serves_a_run_directory_without_jax_pandas_or_msgpack(tmp_path):
+    assert _BLOCKED_ALL != _BLOCKED
+    proc = _run(_BLOCKED_ALL + f"""
+import json, threading, urllib.request
+from pathlib import Path
+import numpy as np
+import chip_smoke as cs
+from deepsensornz_tpu_torch.infer.server import PredictService, serve
+from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+from deepsensornz_tpu_torch.pipeline.validate import load_run
+from deepsensornz_tpu_torch.task.loader import TaskLoader
+times, base, aux, highres, stations = cs.service_data(
+    0, n_times=6, base_hw=(9, 8), aux_hw=(20, 18), highres_hw=(24, 22), n_stations=12)
+tl = TaskLoader([base, aux, stations], stations, aux_at_targets=highres, internal_density=30)
+cfg = ConvNPConfig(unet_channels=(8, 8), internal_density=30, rank=4, decoder_channels=8,
+                   mlp_hidden=8, compute_dtype="float32")
+model = cs.build_model(cfg, tl(list(times[:1])), seed=0, device="cpu")
+dp = cs.make_processor("temperature_station")
+run = Path({str(tmp_path)!r}) / "run"
+cs.write_run(run, tl, dp, model)
+assert sorted(p.name for p in run.iterdir()) == [
+    "data_processor.json", "metadata.json", "params.msgpack", "params.pt", "task_loader.pkl"]
+assert (load_run(str(run), device="cpu")["params"]["ls_decoder"] == model.ls_decoder).all()
+(run / "params.pt").unlink()  # from here on the parameters come from params.msgpack
+r = load_run(str(run), device="cpu")
+for k, v in model.state_dict().items():
+    assert (r["params"][k] == v).all(), k
+dem, _ = cs.target_fields(dp, (40, 36), seed=0)
+svc = PredictService(str(run), dem, highres_factor=2, device="cpu")
+req = [str(t) for t in times[:3]]
+resp = svc.predict(req)
+mean = np.asarray(resp["mean"])
+assert mean.shape == (3, 20, 18) and ((mean == -9999.0) == np.isnan(svc.pred_grid.data)).all()
+assert svc.predictor.std_scale == cs.STD_SCALE
+httpd = serve(str(run), dem, port=0, highres_factor=2, device="cpu")
+thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+thread.start()
+try:
+    url = f"http://127.0.0.1:{{httpd.server_address[1]}}/predict"
+    body = json.dumps({{"times": req}}).encode()
+    with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=120) as r:
+        assert r.status == 200 and json.loads(r.read()) == resp
+finally:
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(timeout=30)
+assert not thread.is_alive()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "flax", "optax", "deepsensornz_tpu", "pandas", "msgpack") and sys.modules[m] is not None)
+assert not leaked, leaked
+print("served")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "served" in proc.stdout
 
 
 def test_kernel_module_imports_without_nvcc():
