@@ -78,20 +78,45 @@ Phases (one line each; the first failure exits non-zero):
              and uploads included); losses, peak memory; checks finite
              losses, moved parameters, and B1's forward and backward
              launched on every step.
-11. train-reference - one train step of a small ConvNP on the GPU (kernels)
+11. pipeline - a run trained from data and served, as a modeller does:
+             the port's ``synthetic_bundle`` (temperature, 40 daily times, a
+             139x130 base, a 2780x2600 DEM, 512 stations) ->
+             ``PreprocessForDownscaling`` (highres x10, lowres x50, time of
+             year) -> ``Train`` on the card -> ``setup_task_loader`` (density
+             500: the 608x608 grid) -> the flagship ConvNP -> ``train_model``
+             (2 epochs, batch 8: 32 training and 8 validation times,
+             ``std_scale`` fitted, the run directory written) ->
+             ``PredictService`` answering two 24-time requests. Wall time of
+             each stage (generation, preprocessing, loader set-up, task
+             building, each epoch, ``fit_std_scale``, the writes), the losses,
+             ``std_scale``, peak memory, each request split as in [service],
+             and the launches of training and of serving; checks finite
+             losses, ``std_scale`` in [0.05, 20], B1, its l-gradient and B2
+             launched and none of their plain versions called on the card,
+             and each response bitwise equal to a direct ``predict_grid``.
+             Outside the counted runs: B1 against its plain version on one
+             training batch of the pipeline's loader (8 x its point
+             capacity, ragged station sets in masked slots) with the
+             trained model, and on the last request's 24-time task; B1's
+             l-gradient on the same batch in float64 as in [train-kernels].
+12. train-reference - one train step of a small ConvNP on the GPU (kernels)
              and on the CPU (plain versions) from the same weights and
              batch: the loss, every parameter's gradient, and the update
              where Adam's first step is well conditioned.
 
-The last two lines are a JSON object of per-kernel results (its launch
-counts are those of the main-path phases: serve, service, sample-serve, ar
-and train) and the ``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy
-and the standard library.
+The first lines also say whether scipy (with its version), pandas, PyYAML
+and matplotlib import. The last two lines are a JSON object of per-kernel
+results (its launch counts are those of the main-path phases: serve,
+service, sample-serve, ar, train and pipeline) and the
+``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy,
+scipy and the standard library.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
 import json
 import pickle
 import shutil
@@ -155,6 +180,10 @@ DEM_FACTOR = 10  # the 2780x2600 DEM coarsens to the 278x260 grid
 HIGHRES_HW = (556, 520)  # the aux sampled at the targets
 MISSING_ROWS = 0.1  # share of station rows absent
 STD_SCALE = 0.8  # the run's recalibration factor
+PIPELINE_TIMES = 40  # daily times of the pipeline's synthetic data
+PIPELINE_DEM_HW = (2780, 2600)  # the raw DEM; x10 gives the 278x260 grid
+PIPELINE_EPOCHS = 2
+STD_SCALE_RANGE = (0.05, 20.0)  # fit_std_scale's clip
 # the least time the card could take: FLOPs at the dense TF32 tensor-core
 # rate (the fastest the card multiplies f32 operands) or bytes at the HBM
 # rate, whichever is larger (H100 SXM data sheet, at a 700 W limit)
@@ -174,6 +203,14 @@ KERNELS = {
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def module_version(name: str) -> str:
+    """A module's version where it imports, else why not."""
+    try:
+        return getattr(importlib.import_module(name), "__version__", "imports")
+    except ImportError as e:
+        return f"does not import ({e})"
 
 
 def import_port():
@@ -650,12 +687,12 @@ def stack_timing(aux, reps: int = TIMING_REPS) -> None:
         raise AssertionError("_stack_channels differs from np.stack")
 
 
-def encode_check(model, task) -> float:
-    """B1 against its plain version on each station set of a task the
-    service's loader built (its point capacity, per-time padding and
-    missing rows), with the model's own length scales; returns the largest
-    error. These launches are not counted: the caller reads its counts
-    before this runs and resets them after."""
+def encode_check(model, task, phase: str = "service") -> float:
+    """B1 against its plain version on each station set of a task a loader
+    built (its point capacity, per-time padding and missing rows), with the
+    model's own length scales; returns the largest error. These launches
+    are not counted: the caller reads its counts before this runs and
+    resets them after."""
     import torch
 
     from deepsensornz_tpu_torch.ops import setconv, setconv_cuda
@@ -667,15 +704,61 @@ def encode_check(model, task) -> float:
             got = setconv_cuda.encode_offgrid(*args)
             torch.cuda.synchronize()
             cmp = compare(got, setconv.setconv_encode_offgrid(*args), RTOL, ATOL_FRAC)
-            say("service", f"encode_offgrid at the loader's shape {tuple(p.x.shape)} "
+            say(phase, f"encode_offgrid at the loader's shape {tuple(p.x.shape)} "
                 f"({int(p.mask.sum())} of {p.mask.numel()} slots filled) -> {tuple(got.shape)}: "
                 f"max_abs_err {cmp['max_abs_err']:.3e} max_rel_err {cmp['max_rel_err']:.3e} "
                 f"(rtol {RTOL}, atol {cmp['atol']:.3e})")
             if not cmp["ok"]:
-                raise AssertionError("encode_offgrid disagrees with its plain version at the "
-                                     "service loader's shape")
+                raise AssertionError(f"encode_offgrid disagrees with its plain version at the "
+                                     f"{phase} loader's shape")
             worst = max(worst, cmp["max_abs_err"])
     return worst
+
+
+def grad_check(phase: str, label: str, ls, task, seed: int) -> tuple[float, tuple]:
+    """B1's l-gradient against its plain version in float64 on the first
+    station set of ``task`` (on the card), for a random upstream gradient, a
+    density-only one and one positive on every channel, twice each (the
+    result must not change from run to run); returns the largest error, the
+    kernel's arguments and the random upstream."""
+    import torch
+
+    from deepsensornz_tpu_torch.ops import setconv, setconv_cuda
+
+    p = task.points[0]
+    pts = (task.x1g, task.x2g, p.x, p.y, p.mask)
+    gen = torch.Generator(device=task.x1g.device).manual_seed(seed)
+    shape = (p.x.shape[0], task.x1g.shape[0], task.x2g.shape[0], p.y.shape[-1] + 1)
+    g_random = torch.randn(shape, generator=gen, device=gen.device)
+    # the density channel alone: summands of one sign, nothing cancels
+    g_density = torch.zeros(shape, device=gen.device)
+    g_density[..., 0] = 0.5 + torch.rand(shape[:3], generator=gen, device=gen.device)
+    # every channel positive: the value channels' terms without the random
+    # sign's cancellation across cells
+    g_positive = 0.5 + torch.rand(shape, generator=gen, device=gen.device)
+    with torch.no_grad():  # the forward's output, as the backward gets it
+        fwd = setconv_cuda.encode_offgrid(*pts, ls)
+    max_err = 0.0
+    filled = f"{int(p.mask.sum())} of {p.mask.numel()} slots filled"
+    for gname, g in (("random", g_random), ("density", g_density), ("positive", g_positive)):
+        got = setconv_cuda.encode_offgrid_grad(*pts, ls, g, fwd)
+        again = setconv_cuda.encode_offgrid_grad(*pts, ls, g, fwd)
+        terms = setconv.encode_offgrid_grad_ls_terms(*pts, ls.double(), g.double())
+        ref = float(sum(t.sum() for t in terms))
+        bound = GRAD_RTOL * abs(ref) + GRAD_SUM_TOL * float(sum(t.abs().sum() for t in terms))
+        err = abs(float(got) - ref)
+        max_err = max(max_err, err)
+        say(phase, f"encode_offgrid_grad {label} {shape} ({filled}) g {gname}: got "
+            f"{float(got):.9g} float64 {ref:.9g}; abs err {err:.3e}, rel err "
+            f"{err / abs(ref):.3e}, bound {GRAD_RTOL} * |ref| + {GRAD_SUM_TOL} * sum|terms| = "
+            f"{bound:.3e}; deterministic {bool(torch.equal(got, again))}")
+        if err > bound:
+            raise AssertionError(f"encode_offgrid_grad disagrees with its plain version "
+                                 f"({phase} {label}, g {gname})")
+        if not torch.equal(got, again):
+            raise AssertionError("encode_offgrid_grad changed from run to run")
+        del terms
+    return max_err, pts + (ls, g_random, fwd)
 
 
 def sample_serve(dev, model, dp, dem, aux_field, target_var, setconv_cuda) -> dict:
@@ -958,39 +1041,9 @@ def train_kernels(dev, model, setconv, setconv_cuda) -> dict:
     out = {}
     for label, n_tasks in (("train", N_TRAIN_TASKS), ("serve", N_TASKS)):
         task = cycle_task(10 + n_tasks, n_tasks, model.cfg.internal_density).to(dev)
-        p = task.points[0]
-        pts = (task.x1g, task.x2g, p.x, p.y, p.mask)
-        gen = torch.Generator(device=dev).manual_seed(n_tasks)
-        shape = (n_tasks, task.x1g.shape[0], task.x2g.shape[0], p.y.shape[-1] + 1)
-        g_random = torch.randn(shape, generator=gen, device=dev)
-        # the density channel alone: summands of one sign, nothing cancels
-        g_density = torch.zeros(shape, device=dev)
-        g_density[..., 0] = 0.5 + torch.rand(shape[:3], generator=gen, device=dev)
-        # every channel positive: the value channels' terms without the
-        # random sign's cancellation across cells
-        g_positive = 0.5 + torch.rand(shape, generator=gen, device=dev)
-        with torch.no_grad():  # the forward's output, as the backward gets it
-            fwd = setconv_cuda.encode_offgrid(*pts, ls)
-        max_err = 0.0
-        for gname, g in (("random", g_random), ("density", g_density),
-                         ("positive", g_positive)):
-            got = setconv_cuda.encode_offgrid_grad(*pts, ls, g, fwd)
-            again = setconv_cuda.encode_offgrid_grad(*pts, ls, g, fwd)
-            terms = setconv.encode_offgrid_grad_ls_terms(*pts, ls.double(), g.double())
-            ref = float(sum(t.sum() for t in terms))
-            bound = GRAD_RTOL * abs(ref) + GRAD_SUM_TOL * float(sum(t.abs().sum() for t in terms))
-            err = abs(float(got) - ref)
-            max_err = max(max_err, err)
-            say("train-kernels", f"{label} {shape} g {gname}: got {float(got):.9g} float64 "
-                f"{ref:.9g}; abs err {err:.3e}, rel err {err / abs(ref):.3e}, bound "
-                f"{GRAD_RTOL} * |ref| + {GRAD_SUM_TOL} * sum|terms| = {bound:.3e}; "
-                f"deterministic {bool(torch.equal(got, again))}")
-            if err > bound:
-                raise AssertionError(f"encode_offgrid_grad disagrees with its plain version "
-                                     f"({label}, g {gname})")
-            if not torch.equal(got, again):
-                raise AssertionError("encode_offgrid_grad changed from run to run")
-        ms = cuda_ms(lambda: setconv_cuda.encode_offgrid_grad(*pts, ls, g_random, fwd))
+        max_err, args = grad_check("train-kernels", label, ls, task, seed=n_tasks)
+        pts, g_random, fwd = args[:5], args[6], args[7]
+        ms = cuda_ms(lambda: setconv_cuda.encode_offgrid_grad(*args))
         ls_req = ls.clone().requires_grad_(True)
         enc = setconv.setconv_encode_offgrid(*pts, ls_req)
         plain_ms = cuda_ms(lambda: torch.autograd.grad(enc, ls_req, g_random, retain_graph=True))
@@ -1003,7 +1056,7 @@ def train_kernels(dev, model, setconv, setconv_cuda) -> dict:
                    "library_ms": None}
         else:
             out["max_abs_err"] = max(out["max_abs_err"], max_err)
-        del enc, fwd, terms, task
+        del enc, args, pts, g_random, fwd, task
     return out
 
 
@@ -1062,8 +1115,204 @@ def train_flagship(dev, model, cfg, setconv_cuda) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def stage_timers(targets: dict):
+    """Each ``(owner, attribute)`` of ``targets`` replaced by a
+    :class:`Timed` stand-in for the block (yielded by name), then put back."""
+    saved = {name: getattr(owner, attr) for name, (owner, attr) in targets.items()}
+    timers = {name: Timed(fn) for name, fn in saved.items()}
+    try:
+        for name, (owner, attr) in targets.items():
+            setattr(owner, attr, timers[name])
+        yield timers
+    finally:
+        for name, (owner, attr) in targets.items():
+            setattr(owner, attr, saved[name])
+
+
+@contextlib.contextmanager
+def plain_calls_on_card(setconv):
+    """Counts, per name, the calls of the kernels' plain versions made with
+    tensors on the card (the kernel wrappers call them for CPU tensors
+    only); yields the counts."""
+    import torch
+
+    names = ("setconv_encode_offgrid", "setconv_encode_offgrid_grad_ls", "setconv_decode_grid")
+    saved = {n: getattr(setconv, n) for n in names}
+    counts = dict.fromkeys(names, 0)
+
+    def counting(name):
+        def call(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    try:
+        for n in names:
+            setattr(setconv, n, counting(n))
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(setconv, n, fn)
+
+
+def pipeline_phase(dev, cfg, setconv, setconv_cuda) -> tuple[dict, dict]:
+    """Phase 11: synthetic data -> preprocessing -> ``Train`` at ``cfg``'s
+    width -> a run directory -> ``PredictService``; returns the launch
+    counts of training and serving together, and the largest error of B1
+    and of its l-gradient against their plain versions on the pipeline's
+    own tasks."""
+    import torch
+
+    from deepsensornz_tpu_torch.data.synthetic import synthetic_bundle
+    from deepsensornz_tpu_torch.infer.server import PredictService
+    from deepsensornz_tpu_torch.pipeline import train as ptrain
+    from deepsensornz_tpu_torch.pipeline.preprocess import PreprocessForDownscaling
+    from deepsensornz_tpu_torch.task.batching import take
+    from deepsensornz_tpu_torch.train import checkpoint, trainer
+
+    t_phase = t0 = time.perf_counter()
+    base, dem, stations = synthetic_bundle("temperature", n_times=PIPELINE_TIMES,
+                                           base_hw=(139, 130), dem_hw=PIPELINE_DEM_HW,
+                                           n_stations=N_STATIONS, seed=0)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle = PreprocessForDownscaling("temperature").run_processing_sequence(
+        dem, {"temperature": base}, stations, highres_factor=DEM_FACTOR, lowres_factor=50,
+        include_time_of_year=True)
+    pre_s = time.perf_counter() - t0
+    grids = {k: "x".join(map(str, next(iter(bundle[k].values())).shape[-2:] + (len(bundle[k]),)))
+             for k in ("base_ds", "highres_aux_ds", "aux_ds")}
+    say("pipeline", f"synthetic data ({PIPELINE_TIMES} times, base {base.shape[1:]}, DEM {dem.shape}, "
+        f"{len(stations)} station rows) {gen_s:.3f} s; preprocessing {pre_s:.3f} s: base "
+        f"{grids['base_ds']}, highres aux {grids['highres_aux_ds']}, lowres aux "
+        f"{grids['aux_ds']}, {len(bundle['station_df'])} station rows, columns "
+        f"{bundle['station_df'].columns}")
+
+    t0 = time.perf_counter()
+    tr = ptrain.Train(bundle)
+    tl = tr.setup_task_loader(internal_density=cfg.internal_density)
+    setup_s = time.perf_counter() - t0
+    say("pipeline", f"Train on {tr.device}, loader set-up {setup_s:.3f} s: internal grid "
+        f"{len(tl.x1g)}x{len(tl.x2g)}, point capacity {tl.point_capacity}")
+    if (len(tl.x1g), len(tl.x2g)) != (608, 608):
+        raise AssertionError("the pipeline's internal grid is not the flagship's 608x608")
+    tr.initialise_model(unet_channels=cfg.unet_channels, likelihood=cfg.likelihood,
+                        rank=cfg.rank, decoder_channels=cfg.decoder_channels,
+                        mlp_hidden=cfg.mlp_hidden)
+    tr.create_tasks = Timed(tr.create_tasks)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = Path(tmp) / "run"
+        targets = {"epoch": (trainer, "train_epoch"), "fit_std_scale": (ptrain, "fit_std_scale"),
+                   "save_task_loader": (ptrain, "save_task_loader"),
+                   "save_checkpoint": (checkpoint, "save_checkpoint"),
+                   "update_metadata": (ptrain, "update_metadata")}
+        with stage_timers(targets) as timers, plain_calls_on_card(setconv) as plain:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            setconv_cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = tr.train_model(n_epochs=PIPELINE_EPOCHS, batch_size=N_TRAIN_TASKS,
+                                 model_dir=str(run_dir), verbose=False)
+            train_s = time.perf_counter() - t0
+            train_counts = setconv_cuda.launch_counts()
+            train_peak = torch.cuda.max_memory_allocated(dev)
+            plain_train = dict(plain)
+        wall = {k: [c["wall_s"] for c in t.calls] for k, t in timers.items()}
+        tasks_s = [c["wall_s"] for c in tr.create_tasks.calls]
+        writes_s = sum(sum(wall[k]) for k in ("save_task_loader", "save_checkpoint",
+                                               "update_metadata"))
+        layout = ("the JAX package's" if b"pandas" in (run_dir / "task_loader.pkl").read_bytes()
+                  else "the port's")
+        say("pipeline", f"train_model {train_s:.3f} s wall: task building "
+            f"{' + '.join(f'{t:.3f}' for t in tasks_s)} s (train, validation times), epochs "
+            f"{', '.join(f'{t:.3f}' for t in wall['epoch'])} s (training steps; validation "
+            f"and checkpoint outside), fit_std_scale {sum(wall['fit_std_scale']):.3f} s, writes "
+            f"{writes_s:.3f} s (task_loader.pkl {sum(wall['save_task_loader']):.3f}, "
+            f"{len(wall['save_checkpoint'])} checkpoints {sum(wall['save_checkpoint']):.3f}, "
+            f"metadata {sum(wall['update_metadata']):.3f}); peak memory "
+            f"{train_peak / 2**30:.2f} GiB; task_loader.pkl in {layout} layout")
+        say("pipeline", f"train losses {out['train_losses']}, validation losses "
+            f"{out['val_losses']}; std_scale {out.get('std_scale')}; launches {train_counts}; "
+            f"plain versions called on the card {plain_train}")
+        losses = out["train_losses"] + out["val_losses"]
+        if len(out["train_losses"]) != PIPELINE_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f"pipeline training losses {losses}")
+        lo, hi = STD_SCALE_RANGE
+        if not lo <= out.get("std_scale", np.nan) <= hi:
+            raise AssertionError(f"std_scale {out.get('std_scale')} outside [{lo}, {hi}]")
+        # B1 and its l-gradient against their plain versions on one training
+        # batch of the pipeline's loader (ragged station sets in masked
+        # slots), with the trained length scales; outside the counts above
+        batch = take(tr.create_tasks.calls[0]["out"], list(range(N_TRAIN_TASKS))).to(dev)
+        errs = {"encode_offgrid": encode_check(tr.model, batch, "pipeline")}
+        errs["encode_offgrid_grad"] = grad_check(
+            "pipeline", "train batch", tr.model.lengthscale("ls_points_0").detach(), batch,
+            seed=N_TRAIN_TASKS)[0]
+        del tr, out, batch
+
+        t0 = time.perf_counter()
+        svc = PredictService(str(run_dir), dem, highres_factor=DEM_FACTOR)
+        load_s = time.perf_counter() - t0
+        loader = svc.run["task_loader"] = Timed(svc.run["task_loader"])
+        forward = svc.predictor.predict_grid = Timed(svc.predictor.predict_grid,
+                                                     cuda_events=True)
+        sea = np.isnan(svc.pred_grid.data)
+        times = base.coords["time"]
+        serve_counts = dict.fromkeys(setconv_cuda.launch_counts(), 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with plain_calls_on_card(setconv) as plain:
+            # the first and the last 24 days
+            for i, start in enumerate((0, len(times) - N_TASKS)):
+                window = times[start: start + N_TASKS]
+                req = [str(t) for t in window]
+                setconv_cuda.reset_launch_counts()
+                t0 = time.perf_counter()
+                resp = svc.predict(req)
+                total_s = time.perf_counter() - t0
+                launches = setconv_cuda.launch_counts()
+                for k, v in launches.items():
+                    serve_counts[k] += v
+                task, fwd = loader.calls[-1]["out"], forward.calls[-1]
+                direct = forward.fn(task, svc.pred_grid, aux_at_targets=loader.aux_at_targets,
+                                    times=np.asarray(window))
+                same = {}
+                for key in ("mean", "std"):
+                    got = np.asarray(resp[key], np.float32)
+                    want = np.nan_to_num(direct[key].data, nan=-9999.0)
+                    same[key] = (got.shape == (len(window),) + svc.pred_grid.shape
+                                 and got.tobytes() == want.tobytes()
+                                 and bool(((got == -9999.0) == sea).all()))
+                loader_s = loader.calls[-1]["wall_s"]
+                say("pipeline", f"request {i} ({len(req)} times from {req[0]}): {total_s:.3f} s "
+                    f"wall = loader {loader_s:.4f} s + predict_grid {fwd['wall_s']:.4f} s "
+                    f"({fwd['ms']:.1f} ms CUDA events) + response "
+                    f"{total_s - loader_s - fwd['wall_s']:.4f} s; launches {launches}; bitwise "
+                    f"equal to a direct predict_grid with sea -9999: {same}")
+                if launches["encode_offgrid"] != 1 or launches["decode_grid"] != 1:
+                    raise AssertionError(f"request {i} launched {launches}, not B1 and B2 once")
+                if not all(same.values()):
+                    raise AssertionError(f"request {i}: the response differs from predict_grid")
+            plain_serve = dict(plain)
+        serve_peak = torch.cuda.max_memory_allocated(dev)
+        # B1 against its plain version on the last request's 24-time task
+        errs["encode_offgrid"] = max(errs["encode_offgrid"], encode_check(
+            svc.predictor.model, loader.calls[-1]["out"].to(dev), "pipeline"))
+    say("pipeline", f"PredictService load {load_s:.3f} s; serving peak memory "
+        f"{serve_peak / 2**30:.2f} GiB; launches {serve_counts}; plain versions called on the "
+        f"card {plain_serve}; the phase {time.perf_counter() - t_phase:.1f} s wall")
+    for name in ("encode_offgrid", "encode_offgrid_grad"):
+        if train_counts[name] == 0:
+            raise AssertionError(f"pipeline training did not launch {name}")
+    if any(plain_train.values()) or any(plain_serve.values()):
+        raise AssertionError("a plain SetConv ran on the card in the pipeline")
+    return {k: train_counts[k] + serve_counts[k] for k in train_counts}, errs
+
+
 def train_reference(dev, setconv_cuda) -> None:
-    """Phase 11: a small train step on the GPU (kernels) against the CPU
+    """Phase 12: a small train step on the GPU (kernels) against the CPU
     (plain versions) from the same weights and batch."""
     import torch
 
@@ -1144,6 +1393,8 @@ def main() -> int:
     print(smi, flush=True)  # name, power limit, as nvidia-smi prints them
     say("device", f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    say("device", "; ".join(f"{m} {module_version(m)}" for m in
+                            ("scipy", "pandas", "yaml", "matplotlib")))
 
     # -- 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1206,10 +1457,13 @@ def main() -> int:
 
     results["encode_offgrid_grad"] = train_kernels(dev, model, setconv, setconv_cuda)
     train_counts = train_flagship(dev, model, cfg, setconv_cuda)
+    pipeline_counts, pipeline_errs = pipeline_phase(dev, cfg, setconv, setconv_cuda)
+    for name, err in pipeline_errs.items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     train_reference(dev, setconv_cuda)
 
     phases = {"serve": serve_counts, "service": service_counts, "sample-serve": sample_counts,
-              "ar": ar_counts, "train": train_counts}
+              "ar": ar_counts, "train": train_counts, "pipeline": pipeline_counts}
     launches = {name: sum(c[name] for c in phases.values()) for name in KERNELS}
     say("launches", "; ".join(f"{k} {v}" for k, v in phases.items()))
     print(json.dumps({"kernels": [

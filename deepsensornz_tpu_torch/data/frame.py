@@ -39,6 +39,13 @@ class StationFrame:
         index is dropped: the loader selects rows by position)."""
         return cls({c: df[c].to_numpy() for c in df.columns})
 
+    def to_pandas(self):
+        """A pandas DataFrame of these columns, in this order and with these
+        dtypes, on a RangeIndex."""
+        import pandas as pd
+
+        return pd.DataFrame(dict(self._cols))
+
     @property
     def columns(self) -> list[str]:
         return list(self._cols)
@@ -46,13 +53,43 @@ class StationFrame:
     def __len__(self) -> int:
         return self._len
 
-    def __getitem__(self, name: str) -> np.ndarray:
-        return self._cols[name]
+    def __getitem__(self, key):
+        """A column by name, or the rows where a boolean mask is True."""
+        if isinstance(key, str):
+            return self._cols[key]
+        mask = np.asarray(key)
+        if mask.dtype != bool or mask.shape != (self._len,):
+            raise TypeError("index a StationFrame by a column name or a boolean row mask")
+        return self.take(np.nonzero(mask)[0])
+
+    def __setitem__(self, name: str, values) -> None:
+        """Set a column: in place where it exists, else at the end."""
+        values = np.asarray(values)
+        if values.shape != (self._len,) and self._cols:
+            raise ValueError(f"column {name!r} has shape {values.shape}, frame length {self._len}")
+        if name == "time":
+            values = values.astype("datetime64[s]")
+        if not self._cols:
+            self._len = len(values)
+        self._cols[str(name)] = values
+
+    def pop(self, name: str) -> np.ndarray:
+        return self._cols.pop(name)
+
+    def copy(self) -> "StationFrame":
+        return StationFrame({k: v.copy() for k, v in self._cols.items()})
 
     def take(self, idx) -> "StationFrame":
         """The rows at the integer positions ``idx``, in that order."""
         idx = np.asarray(idx, dtype=np.intp)
         return StationFrame({k: v[idx] for k, v in self._cols.items()})
+
+    def groupby_time(self):
+        """(time, row positions) for each distinct non-NaT time, in sorted
+        time order; the positions in row order."""
+        t = self._cols["time"]
+        for u in np.unique(t[~np.isnat(t)]):
+            yield u, np.nonzero(t == u)[0]
 
     def max_rows_per_time(self) -> int:
         """The most rows that share one (non-NaT) time; 0 when empty."""

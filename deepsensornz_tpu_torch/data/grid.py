@@ -1,11 +1,13 @@
 """Labeled N-d grids (``Field``) and collections (``Dataset``).
 
-numpy copy of the subset of ``deepsensornz_tpu/data/grid.py`` that
-gridded prediction touches: construction, ``dims``/``coords``, ``rename``,
-block-mean ``coarsen``, nearest/linear interpolation along one dim and
-``fillna``; and ``interp_grid_at_points`` from
-``deepsensornz_tpu/task/loader.py``, which AR sampling on a grid needs.
-NetCDF I/O is not carried over (it needs h5py).
+numpy copy of ``deepsensornz_tpu/data/grid.py`` without its NetCDF I/O
+(that needs h5py): construction, ``dims``/``coords``, ``values``/``dtype``,
+``rename``/``rename_dims``/``astype``, label and position selection
+(``sel`` with slices, ``method="nearest"`` and ``tolerance``; ``isel``),
+block coarsening, ``mean``/``sum``, nearest/linear ``interp_like``,
+``fillna``/``where``, ``resolution`` and arithmetic; and
+``interp_grid_at_points`` from ``deepsensornz_tpu/task/loader.py``, which
+the loader and AR sampling on a grid need.
 """
 
 from __future__ import annotations
@@ -39,9 +41,19 @@ class Field:
                     f"coord {d!r} has shape {self.coords[d].shape}, dim size is {n}"
                 )
 
+    # -- basic properties ---------------------------------------------------------
+
     @property
     def shape(self) -> tuple[int, ...]:
         return self.data.shape
+
+    @property
+    def values(self) -> np.ndarray:
+        return self.data
+
+    @property
+    def dtype(self):
+        return self.data.dtype
 
     def sizes(self) -> dict[str, int]:
         return dict(zip(self.dims, self.data.shape))
@@ -62,6 +74,65 @@ class Field:
         out = self.copy(self.data)
         out.name = name
         return out
+
+    def rename_dims(self, mapping: Mapping[str, str]) -> "Field":
+        """Rename dimensions and their coordinates."""
+        dims = tuple(mapping.get(d, d) for d in self.dims)
+        coords = {mapping.get(k, k): v for k, v in self.coords.items()}
+        return Field(self.data, dims, coords, self.name, dict(self.attrs))
+
+    def astype(self, dtype) -> "Field":
+        return self.copy(self.data.astype(dtype))
+
+    # -- selection ----------------------------------------------------------------
+
+    def isel(self, **indexers) -> "Field":
+        """Integer/slice/array indexing by dim name; a scalar drops the dim.
+        At most one dim may take an array indexer (numpy would broadcast
+        several jointly, which is not label semantics)."""
+        n_array = sum(1 for v in indexers.values()
+                      if isinstance(v, (list, np.ndarray)) and np.ndim(v) > 0)
+        if n_array > 1:
+            raise ValueError("isel supports an array indexer on at most one dim; "
+                             "chain .isel calls for multiple dims")
+        idx = [slice(None)] * self.data.ndim
+        for dim, sel in indexers.items():
+            idx[self.axis(dim)] = sel
+        data = self.data[tuple(idx)]
+        dims, coords = [], {}
+        for d in self.dims:
+            sel = indexers.get(d, slice(None))
+            if (np.isscalar(sel) or (isinstance(sel, np.ndarray) and sel.ndim == 0)
+                    or isinstance(sel, (int, np.integer))):
+                continue  # dim dropped
+            dims.append(d)
+            if d in self.coords:
+                coords[d] = self.coords[d][sel]
+        for d, c in self.coords.items():
+            if d not in indexers and d in dims:
+                coords[d] = c
+        return Field(data, tuple(dims), coords, self.name, dict(self.attrs))
+
+    def sel(self, method: str | None = None, tolerance=None, **indexers) -> "Field":
+        """Label-based selection: scalars drop the dim, slices keep it;
+        ``method="nearest"`` snaps to the closest coordinate value."""
+        int_indexers = {}
+        for dim, want in indexers.items():
+            coord = self.coords[dim]
+            if isinstance(want, slice):
+                int_indexers[dim] = _slice_to_index(coord, want)
+            else:
+                want_arr = np.atleast_1d(np.asarray(want))
+                if np.issubdtype(coord.dtype, np.datetime64):
+                    want_arr = want_arr.astype(coord.dtype)
+                pos = _lookup(coord, want_arr, method=method, tolerance=tolerance)
+                scalar = np.isscalar(want) or (
+                    isinstance(want, np.ndarray) and want.ndim == 0
+                ) or isinstance(want, (np.datetime64, str))
+                int_indexers[dim] = int(pos[0]) if scalar else pos
+        return self.isel(**int_indexers)
+
+    # -- transforms ---------------------------------------------------------------
 
     def coarsen(self, factor: int, dims: Sequence[str] = ("latitude", "longitude"),
                 boundary: str = "trim", how: str = "mean") -> "Field":
@@ -99,6 +170,30 @@ class Field:
             )
         return Field(data, self.dims, coords, self.name, dict(self.attrs))
 
+    def mean(self, dim: str | Sequence[str], skipna: bool = True) -> "Field":
+        return self._reduce(dim, np.nanmean if skipna else np.mean)
+
+    def sum(self, dim: str | Sequence[str], skipna: bool = True) -> "Field":
+        return self._reduce(dim, np.nansum if skipna else np.sum)
+
+    def _reduce(self, dim, fn) -> "Field":
+        dims = (dim,) if isinstance(dim, str) else tuple(dim)
+        axes = tuple(self.axis(d) for d in dims)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", category=RuntimeWarning)
+            data = fn(self.data, axis=axes)
+        new_dims = tuple(d for d in self.dims if d not in dims)
+        coords = {k: v for k, v in self.coords.items() if k not in dims}
+        return Field(data, new_dims, coords, self.name, dict(self.attrs))
+
+    def interp_like(self, other: "Field", method: str = "nearest",
+                    dims: Sequence[str] = ("latitude", "longitude")) -> "Field":
+        """Interpolate onto another Field's grid along ``dims``."""
+        out = self
+        for dim in dims:
+            out = out._interp_one(dim, other.coords[dim], method)
+        return out
+
     def _interp_one(self, dim: str, new_coord: np.ndarray, method: str) -> "Field":
         """Interpolate along one dim onto ``new_coord`` (``"nearest"`` or
         ``"linear"``; sorted ascending internally, clamped at the edges)."""
@@ -135,9 +230,79 @@ class Field:
         data[np.isnan(data)] = value
         return self.copy(data)
 
+    def where(self, mask: np.ndarray, other: float = np.nan) -> "Field":
+        return self.copy(np.where(mask, self.data, other))
+
+    def resolution(self, dim: str) -> float:
+        """Mean grid spacing along a dim."""
+        c = self.coords[dim].astype(np.float64)
+        return float(np.abs(np.diff(c).mean()))
+
+    # -- arithmetic ---------------------------------------------------------------
+
+    def _binop(self, other, fn) -> "Field":
+        if isinstance(other, Field):
+            other = other.data
+        return self.copy(fn(self.data, other))
+
+    def __add__(self, o):
+        return self._binop(o, np.add)
+
+    def __sub__(self, o):
+        return self._binop(o, np.subtract)
+
+    def __mul__(self, o):
+        return self._binop(o, np.multiply)
+
+    def __truediv__(self, o):
+        return self._binop(o, np.divide)
+
     def __repr__(self):
         cs = ", ".join(f"{d}: {n}" for d, n in self.sizes().items())
         return f"<Field {self.name!r} ({cs}) dtype={self.data.dtype}>"
+
+
+def _slice_to_index(coord: np.ndarray, sl: slice) -> slice:
+    """A label slice as a positional slice on a monotonic coord; ``start``
+    and ``stop`` follow the coordinate's own order (on a descending coord,
+    ``slice(high, low)`` selects high→low)."""
+    asc = len(coord) < 2 or coord[1] >= coord[0]
+    start, stop = sl.start, sl.stop
+    if np.issubdtype(coord.dtype, np.datetime64):
+        start = None if start is None else np.datetime64(start)
+        stop = None if stop is None else np.datetime64(stop)
+    lo, hi = (start, stop) if asc else (stop, start)
+    c = coord if asc else coord[::-1]
+    i0 = 0 if lo is None else int(np.searchsorted(c, lo, side="left"))
+    i1 = len(c) if hi is None else int(np.searchsorted(c, hi, side="right"))
+    if asc:
+        return slice(i0, i1)
+    return slice(len(coord) - i1, len(coord) - i0)
+
+
+def _lookup(coord: np.ndarray, want: np.ndarray, method=None, tolerance=None) -> np.ndarray:
+    """Positions of ``want`` in ``coord``: the nearest value (ties to the
+    lower sorted position) or an exact match (the first one; KeyError when
+    absent). ``tolerance`` is accepted and not applied, as in the JAX
+    package."""
+    if method == "nearest":
+        is_time = np.issubdtype(coord.dtype, np.datetime64)
+        cf = coord.astype("int64") if is_time else coord.astype(np.float64)
+        wf = (want.astype(coord.dtype).astype("int64") if is_time
+              else np.asarray(want, np.float64))
+        order = np.argsort(cf)
+        pos = np.searchsorted(cf[order], wf)
+        pos = np.clip(pos, 1, len(cf) - 1)
+        left, right = cf[order][pos - 1], cf[order][pos]
+        pick = np.where(np.abs(wf - left) <= np.abs(right - wf), pos - 1, pos)
+        return order[pick]
+    out = np.empty(len(want), dtype=np.int64)
+    for i, w in enumerate(want):
+        hits = np.nonzero(coord == w)[0]
+        if len(hits) == 0:
+            raise KeyError(f"value {w!r} not found in coordinate")
+        out[i] = hits[0]
+    return out
 
 
 class Dataset:
@@ -153,6 +318,10 @@ class Dataset:
 
     def __getitem__(self, name: str) -> Field:
         return self._fields[name]
+
+    def __setitem__(self, name: str, field: Field):
+        field.name = name
+        self._fields[name] = field
 
     def __contains__(self, name: str) -> bool:
         return name in self._fields
@@ -171,6 +340,22 @@ class Dataset:
 
     def items(self):
         return self._fields.items()
+
+    @property
+    def data_vars(self):
+        return self._fields
+
+    def map(self, fn) -> "Dataset":
+        return Dataset({k: fn(v) for k, v in self._fields.items()}, self.attrs)
+
+    def sel(self, **kw) -> "Dataset":
+        return self.map(lambda f: f.sel(**kw))
+
+    def isel(self, **kw) -> "Dataset":
+        return self.map(lambda f: f.isel(**kw))
+
+    def copy(self) -> "Dataset":
+        return Dataset({k: v.copy() for k, v in self._fields.items()}, dict(self.attrs))
 
     def __repr__(self):
         inner = "\n  ".join(repr(f) for f in self._fields.values())

@@ -1,10 +1,13 @@
 """DataProcessor: coordinate maps + per-variable value normalisation.
 
-numpy copy of the part of ``deepsensornz_tpu/data/processor.py`` that
-serving needs: the linear latitude/longitude → x1/x2 maps, the ``config``
-dict of per-variable stats with ``_apply_values``, and the JSON
-``save``/``load`` format, so a processor written by the JAX package loads
-unchanged. Fitting stats from data is not carried over yet.
+numpy copy of ``deepsensornz_tpu/data/processor.py``: the linear
+latitude/longitude → x1/x2 maps; per-variable value normalisation
+(``mean_std``, ``min_max`` to [-1, 1], ``positive_semidefinite``) whose
+stats are fitted on first use and kept in the ``config`` dict; applied to
+a :class:`Field`, a :class:`Dataset`, a :class:`StationFrame` or a list of
+them, with exact inverses (``unnormalise``) and an apply-only mode
+(``assert_computed=True``); and the JSON ``save``/``load`` format, so a
+processor written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -13,6 +16,9 @@ import json
 from typing import Any
 
 import numpy as np
+
+from deepsensornz_tpu_torch.data.frame import StationFrame
+from deepsensornz_tpu_torch.data.grid import Dataset, Field
 
 
 class DataProcessor:
@@ -58,6 +64,20 @@ class DataProcessor:
 
     # -- value normalisation ---------------------------------------------------
 
+    def _fit(self, name: str, values: np.ndarray, method: str) -> dict:
+        v = np.asarray(values, dtype=np.float64)
+        v = v[np.isfinite(v)]
+        if method == "mean_std":
+            params = {"mean": float(v.mean()), "std": float(max(v.std(), 1e-12))}
+        elif method == "min_max":
+            params = {"min": float(v.min()), "max": float(v.max())}
+        elif method == "positive_semidefinite":
+            params = {"std": float(max(v.std(), 1e-12))}
+        else:
+            raise ValueError(f"unknown normalisation method {method!r}")
+        self.config[name] = {"method": method, "params": params}
+        return self.config[name]
+
     def _apply_values(self, name: str, values: np.ndarray, inverse: bool) -> np.ndarray:
         cfg = self.config[name]
         p = cfg["params"]
@@ -74,6 +94,89 @@ class DataProcessor:
         else:
             raise ValueError(f"unknown normalisation method {m!r}")
         return out.astype(values.dtype if np.issubdtype(np.asarray(values).dtype, np.floating) else np.float64)
+
+    # -- public API ------------------------------------------------------------
+
+    def __call__(self, data, method: str | None = None, assert_computed: bool = False):
+        """Normalise a Field, Dataset or StationFrame (or a list of them)
+        into model space; stats missing from ``config`` are fitted with
+        ``method`` (default ``mean_std``) unless ``assert_computed``."""
+        if isinstance(data, (list, tuple)):
+            return [self(d, method=method, assert_computed=assert_computed) for d in data]
+        if isinstance(data, Dataset):
+            return Dataset({k: self(v, method=method, assert_computed=assert_computed)
+                            for k, v in data.items()}, dict(data.attrs))
+        if isinstance(data, Field):
+            return self._process_field(data, method, inverse=False,
+                                       assert_computed=assert_computed)
+        if isinstance(data, StationFrame):
+            return self._process_frame(data, method, inverse=False,
+                                       assert_computed=assert_computed)
+        raise TypeError(f"cannot process {type(data)}")
+
+    def unnormalise(self, data):
+        """Inverse transform back to physical units and geographic coords."""
+        if isinstance(data, (list, tuple)):
+            return [self.unnormalise(d) for d in data]
+        if isinstance(data, Dataset):
+            return Dataset({k: self.unnormalise(v) for k, v in data.items()}, dict(data.attrs))
+        if isinstance(data, Field):
+            return self._process_field(data, None, inverse=True, assert_computed=True)
+        if isinstance(data, StationFrame):
+            return self._process_frame(data, None, inverse=True, assert_computed=True)
+        raise TypeError(f"cannot unnormalise {type(data)}")
+
+    def _coord_maps(self, inverse: bool) -> tuple:
+        """(old name, new name, map) for x1 then x2: raw → normalised, or
+        back when ``inverse``."""
+        if inverse:
+            return (("x1", self.x1_name, self.unmap_x1), ("x2", self.x2_name, self.unmap_x2))
+        return ((self.x1_name, "x1", self.map_x1), (self.x2_name, "x2", self.map_x2))
+
+    def _process_field(self, f: Field, method, inverse: bool, assert_computed: bool) -> Field:
+        name = f.name
+        if inverse:
+            if name not in self.config:
+                raise KeyError(f"no normalisation stats for {name!r}")
+        elif name not in self.config:
+            if assert_computed:
+                raise KeyError(f"stats for {name!r} not computed and assert_computed=True")
+            self._fit(name, f.data, method or "mean_std")
+        data = self._apply_values(name, f.data, inverse)
+        coords = dict(f.coords)
+        ren = {}
+        for old, new, fn in self._coord_maps(inverse):
+            if old in coords:
+                coords[new] = fn(coords.pop(old))
+                ren[old] = new
+        dims = tuple(ren.get(d, d) for d in f.dims)
+        return Field(data, dims, coords, name, dict(f.attrs))
+
+    def _process_frame(self, frame: StationFrame, method, inverse: bool,
+                       assert_computed: bool) -> StationFrame:
+        """The JAX package's ``_process_df`` on a StationFrame: the
+        coordinate columns are popped and set again, so ``x1``, ``x2`` (or
+        the raw names, inverted) end up last, in that order; then every
+        numeric column outside the coordinate set is normalised, in column
+        order (and fitted first where its stats are missing)."""
+        out = frame.copy()
+        for old, new, fn in self._coord_maps(inverse):
+            if old in out.columns:
+                out[new] = fn(out.pop(old))
+        coord_cols = {"time", "x1", "x2", self.x1_name, self.x2_name, "station_id",
+                      "station_name", "elevation"}
+        for col in out.columns:
+            if col in coord_cols or not np.issubdtype(out[col].dtype, np.number):
+                continue
+            if inverse:
+                if col not in self.config:
+                    continue
+            elif col not in self.config:
+                if assert_computed:
+                    raise KeyError(f"stats for {col!r} not computed and assert_computed=True")
+                self._fit(col, out[col], method or "mean_std")
+            out[col] = self._apply_values(col, out[col], inverse)
+        return out
 
     # -- (de)serialisation -----------------------------------------------------
 

@@ -279,3 +279,10 @@ def _sigmoid_squash(raw: torch.Tensor, dy: int) -> torch.Tensor:
         scale = rest[..., :dy] + torch.log(torch.clamp(dsig, min=1e-6))
         rest = torch.cat([scale, rest[..., dy:]], dim=-1)
     return torch.cat([sig_mu, rest], dim=-1)
+
+
+def count_params(params) -> int:
+    """Total parameter count of a ``state_dict`` (or of a module's
+    parameters)."""
+    values = params.parameters() if isinstance(params, nn.Module) else params.values()
+    return sum(p.numel() for p in values)

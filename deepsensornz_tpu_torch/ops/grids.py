@@ -41,6 +41,14 @@ def internal_grid(
     return out[0], out[1]
 
 
+def infer_internal_density(resolutions: list[float], multiplier: float = 1.0) -> int:
+    """Internal points per unit from the finest gridded context/target
+    resolution (normalised-coordinate spacing): the internal grid is at
+    least as fine as the finest data grid."""
+    finest = min(float(r) for r in resolutions if r > 0)
+    return max(int(math.ceil(multiplier / finest)), 2)
+
+
 def default_lengthscale(density: float) -> float:
     """Default SetConv RBF length-scale: twice the internal grid spacing."""
     return 2.0 / float(density)

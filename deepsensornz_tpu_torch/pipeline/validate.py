@@ -8,15 +8,17 @@ parameters (``params.pt``, or the JAX package's ``params.msgpack``).
 
 The JAX package pickles its own ``TaskLoader`` (station sets as pandas
 DataFrames, grids as its ``Field``/``Dataset``); :func:`load_task_loader`
-reads such a pickle into the port's classes. DataFrames need pandas to
-unpickle: without pandas that pickle raises an error that says so. Loaded
-on a machine with pandas and pickled again, the loader holds no pandas
-object. ``Validate``, ``ValidateERA`` and ``ValidateWRF`` are not ported
-yet.
+reads such a pickle, or the port's own, into the port's classes.
+DataFrames need pandas to unpickle: without pandas that pickle raises an
+error that says so. :func:`save_task_loader` writes the JAX layout where
+pandas is installed, so the JAX package serves a run the port trained,
+and the port's own pickle (no pandas object in it) elsewhere.
+``Validate``, ``ValidateERA`` and ``ValidateWRF`` are not ported yet.
 """
 
 from __future__ import annotations
 
+import copyreg
 import json
 import os
 import pickle
@@ -37,6 +39,7 @@ _JAX_CLASSES = {
     ("deepsensornz_tpu.data.grid", "Field"): Field,
     ("deepsensornz_tpu.data.grid", "Dataset"): Dataset,
 }
+_JAX_NAMES = {cls: name for name, cls in _JAX_CLASSES.items()}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,6 +74,57 @@ def load_task_loader(path: str) -> TaskLoader:
     if not isinstance(tl, TaskLoader):
         raise TypeError(f"{path} holds a {type(tl).__name__}, not a TaskLoader")
     return tl
+
+
+class _JaxLayoutPickler(pickle._Pickler):
+    """Pickles the port's loader as the JAX package's: its three classes
+    are written by name as the JAX classes (the standard pickler would
+    import the JAX package to check each name, and that pulls in jax), and
+    the loader's state is the JAX ``__dict__``, whose class has no
+    ``__setstate__``: station sets as DataFrames, ``_flat_cache`` empty."""
+
+    def __init__(self, file, frames: dict):
+        super().__init__(file, protocol=pickle.DEFAULT_PROTOCOL)
+        self.frames = frames
+
+    def save_global(self, obj, name=None):
+        where = _JAX_NAMES.get(obj)
+        if where is None:
+            return super().save_global(obj, name)
+        self.write(pickle.GLOBAL + f"{where[0]}\n{where[1]}\n".encode("utf-8"))
+        self.memoize(obj)
+
+    def reducer_override(self, obj):
+        if isinstance(obj, TaskLoader):
+            state = dict(obj.__getstate__())
+            state["context"] = [self.frames.get(id(c), c) for c in state["context"]]
+            state["target"] = self.frames.get(id(state["target"]), state["target"])
+            state["_flat_cache"] = {}
+            return copyreg.__newobj__, (TaskLoader,), state
+        return NotImplemented
+
+
+def save_task_loader(tl: TaskLoader, path: str) -> None:
+    """Pickle a loader for a run directory. Where pandas is installed the
+    file holds the JAX package's ``TaskLoader`` (its class paths, station
+    sets as the DataFrames its preprocessing makes), which both packages
+    read; elsewhere it holds the port's loader, as ``pickle.dump`` writes
+    it, and a line says so: load it where pandas is installed and save it
+    again to serve it in the JAX package."""
+    try:
+        import pandas  # noqa: F401
+    except ImportError:
+        with open(path, "wb") as f:
+            pickle.dump(tl, f)
+        print(f"{path}: the port's TaskLoader layout (pandas is not installed); the JAX "
+              "package reads it after load_task_loader + save_task_loader where pandas is")
+        return
+    frames = {}
+    for e in list(tl.context) + [tl.target]:
+        if isinstance(e, StationFrame) and id(e) not in frames:
+            frames[id(e)] = e.to_pandas()
+    with open(path, "wb") as f:
+        _JaxLayoutPickler(f, frames).dump(tl)
 
 
 def load_run(model_dir: str, device=None) -> dict:

@@ -277,7 +277,9 @@ class Trainer:
             shuffle: bool = True, verbose: bool = True, resume_from: Optional[str] = None,
             anchor_schedule: Optional[Callable[[int], float]] = None) -> dict:
         """Train; returns {params (the best epoch's, a copy), final_state,
-        train_losses, val_losses, best_val}.
+        train_losses, val_losses, best_val}. Each checkpoint holds the
+        parameters as ``params.pt`` and as the JAX package's
+        ``params.msgpack``, so either package serves it.
 
         ``resume_from``: a checkpoint directory whose parameters, optimizer
         state, loss history and schedule counters are restored, so the
@@ -344,6 +346,7 @@ class Trainer:
                     save_checkpoint(
                         checkpoint_dir, state.params, opt_state=state.opt_state,
                         step=state.step,
+                        flax_upsample=self.model.cfg.upsample,
                         metadata={**(metadata or {}), "train_losses": train_losses,
                                   "val_losses": val_losses, "best_val": best_val,
                                   "epoch": epoch, "sched": sched.state_dict(),

@@ -12,7 +12,7 @@ setup(
     packages=find_packages(exclude=("tests", "tests.*")),
     package_data={
         "deepsensornz_tpu": ["data/station_registry.json"],
-        "deepsensornz_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "deepsensornz_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "data/station_registry.json"],
     },
     include_package_data=True,
     python_requires=">=3.10",

@@ -258,3 +258,43 @@ def test_encode_matches_plain_on_a_loader_task(cuda):
     model = cs.build_model(cfg, task, seed=0, device=cuda)
     assert task.points[0].x.shape[1] == tl.point_capacity
     assert cs.encode_check(model, task.to(cuda)) >= 0.0
+
+
+def test_pipeline_trains_on_the_card_as_on_the_cpu(cuda, tmp_path, monkeypatch):
+    """A small ``Train.train_model`` from synthetic data on the card (B1 and
+    its l-gradient) and on the CPU (plain versions), from the same seeded
+    weights: two epochs' losses within rtol 1e-4 (f32 with cuDNN's and
+    oneDNN's summation orders); then the card's run served by
+    ``PredictService`` through B1 and B2."""
+    from deepsensornz_tpu_torch.data.synthetic import synthetic_bundle
+    from deepsensornz_tpu_torch.infer.server import PredictService
+    from deepsensornz_tpu_torch.pipeline.preprocess import PreprocessForDownscaling
+    from deepsensornz_tpu_torch.pipeline.train import Train
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    base, dem, stations = synthetic_bundle(n_times=10, base_hw=(24, 24), dem_hw=(96, 96),
+                                           n_stations=20)
+    bundle = PreprocessForDownscaling("temperature").run_processing_sequence(
+        dem, {"temperature": base}, stations, highres_factor=2, lowres_factor=4,
+        include_time_of_year=True)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        tr = Train(bundle, seed=3, device=dev)
+        tr.setup_task_loader(internal_density=24)
+        tr.initialise_model(unet_channels=(8, 8), likelihood="gnp", rank=4,
+                            compute_dtype="float32", decoder_channels=8, mlp_hidden=8)
+        setconv_cuda.reset_launch_counts()
+        out[dev.type] = tr.train_model(n_epochs=2, batch_size=4, lr=1e-3, verbose=False,
+                                       model_dir=str(tmp_path / dev.type))
+        out[dev.type + " launches"] = setconv_cuda.launch_counts()
+    assert out["cuda launches"]["encode_offgrid"] > 0
+    assert out["cuda launches"]["encode_offgrid_grad"] > 0
+    assert out["cpu launches"] == dict.fromkeys(out["cpu launches"], 0)
+    for key in ("train_losses", "val_losses"):
+        np.testing.assert_allclose(out["cuda"][key], out["cpu"][key], rtol=1e-4)
+    svc = PredictService(str(tmp_path / "cuda"), dem, highres_factor=2)
+    setconv_cuda.reset_launch_counts()
+    resp = svc.predict([str(t) for t in base.coords["time"][:2]])
+    assert setconv_cuda.launch_counts()["decode_grid"] == 1
+    assert setconv_cuda.launch_counts()["encode_offgrid"] == 1
+    assert np.asarray(resp["mean"]).shape == (2, 48, 48)

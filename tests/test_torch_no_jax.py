@@ -6,9 +6,11 @@ import every module of ``deepsensornz_tpu_torch`` and ``chip_smoke``, serve
 a tiny gridded request on the CPU, serve it with samples, in chunks, at
 points and by AR sampling, score every head (``sample``, ``cdf_bounds``,
 ``crps``), train (one train step and a one-epoch ``Trainer.fit`` with a
-checkpoint), and serve a run directory: a ``TaskLoader`` over
+checkpoint), serve a run directory (a ``TaskLoader`` over
 ``StationFrame`` objects, the run written with ``params.pt`` and
-``params.msgpack``, one ``PredictService.predict`` and one HTTP round trip.
+``params.msgpack``, one ``PredictService.predict`` and one HTTP round
+trip), and train a run from data: synthetic data → preprocessing →
+``Train.train_model`` → ``load_run`` → ``PredictService``.
 The kernel module must also import without ``nvcc``: the kernels are built
 at first use on the card.
 """
@@ -91,7 +93,8 @@ out = Trainer(model, lr=1e-3).fit(tasks, take(tasks, [4]), n_epochs=1, batch_siz
 assert len(out["train_losses"]) == 1 and math.isfinite(out["best_val"])
 ck = load_checkpoint({str(tmp_path)!r})
 assert ck["metadata"]["epoch"] == 0 and ck["metadata"]["step"] == 3
-assert sorted(os.listdir({str(tmp_path)!r})) == ["metadata.json", "opt_state.pt", "params.pt"]
+assert sorted(os.listdir({str(tmp_path)!r})) == ["metadata.json", "opt_state.pt",
+                                                 "params.msgpack", "params.pt"]
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -201,6 +204,48 @@ print("served")
 """)
     assert proc.returncode == 0, proc.stderr
     assert "served" in proc.stdout
+
+
+def test_port_trains_a_run_from_data_without_jax_pandas_or_msgpack(tmp_path):
+    """The pipeline at tests/test_pipeline.py's size; without pandas the
+    loader is written in the port's layout, and says so."""
+    proc = _run(_BLOCKED_ALL + f"""
+import os
+import numpy as np
+from deepsensornz_tpu_torch.data.synthetic import synthetic_bundle
+from deepsensornz_tpu_torch.infer.server import PredictService
+from deepsensornz_tpu_torch.pipeline.preprocess import PreprocessForDownscaling
+from deepsensornz_tpu_torch.pipeline.train import Train
+from deepsensornz_tpu_torch.pipeline.validate import load_run
+base, dem, stations = synthetic_bundle(n_times=10, base_hw=(24, 24), dem_hw=(96, 96),
+                                       n_stations=20)
+out = PreprocessForDownscaling("temperature").run_processing_sequence(
+    dem, {{"temperature": base}}, stations, highres_factor=2, lowres_factor=4,
+    include_landmask=True, include_time_of_year=True, include_coordinates=True, test_norm=True)
+tr = Train(out, device="cpu")
+tr.setup_task_loader(internal_density=24)
+tr.initialise_model(unet_channels=(8, 8), likelihood="cnp", compute_dtype="float32",
+                    decoder_channels=8, mlp_hidden=8)
+run_dir = {str(tmp_path / "run")!r}
+res = tr.train_model(n_epochs=2, batch_size=4, lr=1e-3, model_dir=run_dir, verbose=False)
+assert np.isfinite(res["train_losses"]).all() and len(res["val_losses"]) == 2
+assert sorted(os.listdir(run_dir)) == ["data_processor.json", "metadata.json", "opt_state.pt",
+                                       "params.msgpack", "params.pt", "task_loader.pkl"]
+data = open(os.path.join(run_dir, "task_loader.pkl"), "rb").read()
+assert b"pandas" not in data and b"deepsensornz_tpu_torch.task.loader" in data
+run = load_run(run_dir, device="cpu")
+assert run["std_scale"] == res["std_scale"] != 1.0
+svc = PredictService(run_dir, dem, highres_factor=2, device="cpu")
+resp = svc.predict([str(t) for t in base.coords["time"][:2]])
+mean = np.asarray(resp["mean"])
+assert mean.shape == (2, 48, 48) and ((mean == -9999.0) == np.isnan(svc.pred_grid.data)).all()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "flax", "optax", "deepsensornz_tpu", "pandas", "msgpack") and sys.modules[m] is not None)
+assert not leaked, leaked
+print("pipeline")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "pipeline" in proc.stdout and "the port's TaskLoader layout" in proc.stdout
 
 
 def test_kernel_module_imports_without_nvcc():
