@@ -99,7 +99,35 @@ Phases (one line each; the first failure exits non-zero):
              capacity, ragged station sets in masked slots) with the
              trained model, and on the last request's 24-time task; B1's
              l-gradient on the same batch in float64 as in [train-kernels].
-12. train-reference - one train step of a small ConvNP on the GPU (kernels)
+12. validate - the pipeline's run directory validated, before it is
+             removed: ``Validate(run_dir)`` and, on the 8 validation times
+             with station ids 0-7 held out, ``calculate_loss``,
+             ``elevation_band_errors`` (errors passed, DEM elevations),
+             ``calibration_stats``, ``pit_stats``, ``crps``, then
+             ``extrapolation_loss`` over a box of the southernmost tenth of
+             stations and the two base-field baselines; then
+             ``ValidateERA(run_dir, dem, highres_factor=10).predict`` of 24
+             raw times twice, split normalise+swap / loader /
+             ``predict_grid`` / rest. Wall and CUDA-event time of each call
+             and its launches; checks finite metrics, z_std and PIT z_std in
+             ``Z_STD_WINDOW``, 95 % coverages in ``COVERAGE_95_WINDOW``,
+             CRPS > 0, the held-out stations absent from the context and
+             present in the targets, B1 once per prediction and B2 once per
+             ``ValidateERA`` request, no plain SetConv on the card, and
+             ``ValidateERA`` bitwise equal to ``predict_grid`` on its task;
+             B1 and B2 against their plain versions on those tasks. Then a
+             72-time request in chunks of 24 for every ``transfer_dtype``
+             (float32, float16, int16, int8) x ``download_threads`` (1, 8) x
+             ``upload_dtype`` (float32, float16): wall and CUDA-event time,
+             ``last_timings``, the largest error against float32 within
+             the mode's bound, 8 threads bitwise equal to 1.
+13. validate-reference - ``Validate`` on a small ConvNP of each head (gnp,
+             cnp, bernoulli-gamma, cnp-spikes-beta) on the GPU and on the
+             CPU from the same weights and run dict: ``calculate_loss``,
+             ``calibration_stats``, ``pit_stats``, ``crps`` (the mixed
+             heads on the same fixed samples, and once from the card's own
+             generator), and ``wet_dry_skill`` for bernoulli-gamma.
+14. train-reference - one train step of a small ConvNP on the GPU (kernels)
              and on the CPU (plain versions) from the same weights and
              batch: the loss, every parameter's gradient, and the update
              where Adam's first step is well conditioned.
@@ -107,7 +135,7 @@ Phases (one line each; the first failure exits non-zero):
 The first lines also say whether scipy (with its version), pandas, PyYAML
 and matplotlib import. The last two lines are a JSON object of per-kernel
 results (its launch counts are those of the main-path phases: serve,
-service, sample-serve, ar, train and pipeline) and the
+service, sample-serve, ar, train, pipeline and validate) and the
 ``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy,
 scipy and the standard library.
 """
@@ -184,6 +212,24 @@ PIPELINE_TIMES = 40  # daily times of the pipeline's synthetic data
 PIPELINE_DEM_HW = (2780, 2600)  # the raw DEM; x10 gives the 278x260 grid
 PIPELINE_EPOCHS = 2
 STD_SCALE_RANGE = (0.05, 20.0)  # fit_std_scale's clip
+VALIDATE_TIMES = 8  # the pipeline's validation times
+VALIDATE_HELD = 8  # station ids 0..7 leave the context
+VALIDATE_BOX_QUANTILE = 0.1  # the extrapolation box: the southernmost tenth of stations
+# wide sane windows for a run trained 2 epochs whose std_scale was fitted on
+# these validation times: z_std (calibration and PIT) and 95 % coverage
+Z_STD_WINDOW = (0.5, 2.0)
+COVERAGE_95_WINDOW = (0.6, 1.0)
+TRANSFER_TIMES = 72  # the transfer-mode request, in chunks of N_TASKS
+# a float16 cast is at most half a unit in its last place off: 2^-11 of the
+# normalised value (the physical value less the target's offset, or the std)
+F16_HALF_ULP = 2.0 ** -11
+# a float16 upload rounds every input to 2^-11 of itself; held loosely, at
+# 2^-8 of the largest normalised value of the map
+UPLOAD_F16_BOUND = 2.0 ** -8
+# [validate-reference]: the small model's metrics on the GPU against the CPU
+# (both torch f32): rtol 1e-4, coverages to 1/n; the mixed heads' PIT to
+# 1e-3 (their CDFs, gammainc and the float64 betainc, in other orders)
+VAL_REF_RTOL, VAL_REF_PIT_RTOL = 1e-4, 1e-3
 # the least time the card could take: FLOPs at the dense TF32 tensor-core
 # rate (the fastest the card multiplies f32 operands) or bytes at the HBM
 # rate, whichever is larger (H100 SXM data sheet, at a 700 W limit)
@@ -1157,12 +1203,13 @@ def plain_calls_on_card(setconv):
             setattr(setconv, n, fn)
 
 
-def pipeline_phase(dev, cfg, setconv, setconv_cuda) -> tuple[dict, dict]:
+def pipeline_phase(dev, cfg, setconv, setconv_cuda) -> tuple[dict, dict, dict]:
     """Phase 11: synthetic data -> preprocessing -> ``Train`` at ``cfg``'s
-    width -> a run directory -> ``PredictService``; returns the launch
-    counts of training and serving together, and the largest error of B1
-    and of its l-gradient against their plain versions on the pipeline's
-    own tasks."""
+    width -> a run directory -> ``PredictService``, then phase 12
+    (:func:`validate_phase`) on the same run directory; returns the launch
+    counts of training and serving together, the largest error of each
+    kernel against its plain version on the pipeline's and validation's own
+    tasks, and the launch counts of validation."""
     import torch
 
     from deepsensornz_tpu_torch.data.synthetic import synthetic_bundle
@@ -1300,6 +1347,11 @@ def pipeline_phase(dev, cfg, setconv, setconv_cuda) -> tuple[dict, dict]:
         # B1 against its plain version on the last request's 24-time task
         errs["encode_offgrid"] = max(errs["encode_offgrid"], encode_check(
             svc.predictor.model, loader.calls[-1]["out"].to(dev), "pipeline"))
+        del svc
+        validate_counts, validate_errs = validate_phase(dev, run_dir, base, dem, stations,
+                                                        setconv, setconv_cuda)
+        for name, err in validate_errs.items():
+            errs[name] = max(errs.get(name, 0.0), err)
     say("pipeline", f"PredictService load {load_s:.3f} s; serving peak memory "
         f"{serve_peak / 2**30:.2f} GiB; launches {serve_counts}; plain versions called on the "
         f"card {plain_serve}; the phase {time.perf_counter() - t_phase:.1f} s wall")
@@ -1308,11 +1360,333 @@ def pipeline_phase(dev, cfg, setconv, setconv_cuda) -> tuple[dict, dict]:
             raise AssertionError(f"pipeline training did not launch {name}")
     if any(plain_train.values()) or any(plain_serve.values()):
         raise AssertionError("a plain SetConv ran on the card in the pipeline")
-    return {k: train_counts[k] + serve_counts[k] for k in train_counts}, errs
+    return {k: train_counts[k] + serve_counts[k] for k in train_counts}, errs, validate_counts
+
+
+def decode_check(model, task, dp, grid, phase: str) -> float:
+    """B2 against its plain version on the features of a task a loader
+    built, decoded onto ``grid``'s cells with the model's own length scale;
+    returns the largest error. Not counted, as :func:`encode_check`."""
+    import torch
+
+    from deepsensornz_tpu_torch.ops import setconv, setconv_cuda
+
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        f = model.features(task.to(dev))
+        xt1 = torch.from_numpy(dp.map_x1(grid.coords["latitude"]).astype(np.float32)).to(dev)
+        xt2 = torch.from_numpy(dp.map_x2(grid.coords["longitude"]).astype(np.float32)).to(dev)
+        args = (task.x1g.to(dev), task.x2g.to(dev), f, xt1, xt2, model.lengthscale("ls_decoder"))
+        got = setconv_cuda.decode_grid(*args)
+        torch.cuda.synchronize()
+        cmp = compare(got, setconv.setconv_decode_grid(*args), RTOL, ATOL_FRAC)
+    say(phase, f"decode_grid on the request's features {tuple(f.shape)} {f.dtype} -> "
+        f"{tuple(got.shape)}: max_abs_err {cmp['max_abs_err']:.3e} max_rel_err "
+        f"{cmp['max_rel_err']:.3e} (rtol {RTOL}, atol {cmp['atol']:.3e})")
+    if not cmp["ok"]:
+        raise AssertionError(f"decode_grid disagrees with its plain version ({phase})")
+    return cmp["max_abs_err"]
+
+
+def validate_phase(dev, run_dir: Path, base, dem, stations, setconv, setconv_cuda):
+    """Phase 12: the pipeline's run directory validated on the card:
+    ``Validate``'s metrics on the validation times with a holdout,
+    ``ValidateERA`` on 24 times from the raw base and stations, then the
+    transfer modes on a 72-time request in chunks of 24. Returns the launch
+    counts of the validation calls and each kernel's largest error against
+    its plain version on validation's own tasks."""
+    import torch
+
+    from deepsensornz_tpu_torch.infer.predict import Predictor
+    from deepsensornz_tpu_torch.pipeline.validate import Validate, ValidateERA, _nearest_index
+
+    t_phase = time.perf_counter()
+    times = base.coords["time"]
+    dates = list(times[-VALIDATE_TIMES:])
+    held = [str(i) for i in range(VALIDATE_HELD)]
+    lat_c, lon_c = dem.coords["latitude"], dem.coords["longitude"]
+
+    def dem_lookup(lat, lon):
+        return float(dem.data[_nearest_index(lat_c, [lat])[0], _nearest_index(lon_c, [lon])[0]])
+
+    box = (float(stations["latitude"].min()) - 1e-6,
+           float(np.quantile(stations["latitude"], VALIDATE_BOX_QUANTILE)))
+    sel = stations[np.isin(stations["time"], np.asarray(dates, stations["time"].dtype))]
+    totals = dict.fromkeys(setconv_cuda.launch_counts(), 0)
+    rows, errs = {}, {}
+
+    def run(name, fn, b1=None, b2=0):
+        """One call under CUDA events; its launches added to the totals and
+        held to ``b1`` B1 and ``b2`` B2 launches where given."""
+        setconv_cuda.reset_launch_counts()
+        out, ms, wall = timed(fn)
+        launches = setconv_cuda.launch_counts()
+        for k, v in launches.items():
+            totals[k] += v
+        rows[name] = (wall, ms)
+        say("validate", f"{name}: {wall:.4f} s wall, {ms:.2f} ms CUDA events; launches "
+            f"{launches}")
+        if b1 is not None and (launches["encode_offgrid"], launches["decode_grid"]) != (b1, b2):
+            raise AssertionError(f"{name} launched {launches}, not B1 {b1} and B2 {b2} times")
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with plain_calls_on_card(setconv) as plain:
+        v = run("Validate(run_dir)", lambda: Validate(str(run_dir)), 0)
+        loss = run("calculate_loss", lambda: v.calculate_loss(dates, held), 1)
+        bands = run("elevation_band_errors (errors passed)", lambda: v.elevation_band_errors(
+            dates, elevation_lookup=dem_lookup, errors=loss["errors"], xt=loss["xt"]), 0)
+        cal = run("calibration_stats", lambda: v.calibration_stats(dates, held), 1)
+        pit = run("pit_stats", lambda: v.pit_stats(dates, held), 1)
+        crps = run("crps", lambda: v.crps(dates, held), 1)
+        ext = run("extrapolation_loss", lambda: v.extrapolation_loss(dates, lat_range=box), 1)
+        lb = run("calculate_loss_base", lambda: v.calculate_loss_base(base, sel), 0)
+        ps = run("per_station_loss_base", lambda: v.per_station_loss_base(base, stations, dates),
+                 0)
+        era = run("ValidateERA(run_dir, dem, highres_factor=10)", lambda: ValidateERA(
+            str(run_dir), dem, highres_factor=DEM_FACTOR), 0)
+        loader = era.run["task_loader"] = Timed(era.run["task_loader"])
+        swap = era._swapped_task = Timed(era._swapped_task)
+        forward = era.predictor.predict_grid = Timed(era.predictor.predict_grid,
+                                                     cuda_events=True)
+        req = times[:N_TASKS]
+        req_sel = stations[np.isin(stations["time"], np.asarray(req, stations["time"].dtype))]
+        preds = []
+        for i in range(2):
+            pred = run(f"ValidateERA.predict {i}{' (warm-up)' if i == 0 else ''} ({N_TASKS} times)",
+                       lambda: era.predict(req, {"temperature": base}, station_df=req_sel,
+                                           remove_stations=held), 1, 1)
+            total = rows[next(reversed(rows))][0]
+            swap_s, load_s = swap.calls[-1]["wall_s"], loader.calls[-1]["wall_s"]
+            fwd = forward.calls[-1]
+            say("validate", f"  = normalise+swap {swap_s - load_s:.4f} s + loader {load_s:.4f} s"
+                f" + predict_grid {fwd['wall_s']:.4f} s ({fwd['ms']:.1f} ms CUDA events) + rest "
+                f"{total - swap_s - fwd['wall_s']:.4f} s")
+            preds.append(pred)
+    peak = torch.cuda.max_memory_allocated(dev)
+    plain = dict(plain)
+
+    # outside the counted calls: the checks
+    task = swap.calls[-1]["out"]
+    direct = forward.fn(task, era.pred_grid, aux_at_targets=loader.aux_at_targets,
+                        times=np.asarray(req))
+    same = {k: preds[-1][k].data.tobytes() == direct[k].data.tobytes() for k in ("mean", "std")}
+    vtask = v._make_tasks(dates, held)
+    full = v._make_tasks(dates)
+    tgt = v.task_loader.target
+    ids = tgt["station_id"].astype(str)
+    xy = np.stack([tgt["x1"], tgt["x2"]], -1).astype(np.float32)
+    held_xy = {tuple(c) for c in xy[np.isin(ids, held)]}
+    absent = present = True
+    for b in range(len(dates)):
+        ctx = {tuple(x) for x in vtask.points[0].x[b][vtask.points[0].mask[b] > 0].numpy()}
+        before = {tuple(x) for x in full.points[0].x[b][full.points[0].mask[b] > 0].numpy()}
+        targets = {tuple(x) for x in vtask.xt[b][vtask.yt_mask[b] > 0].numpy()}
+        absent &= not ctx & held_xy and ctx == before - held_xy
+        present &= (before & held_xy) <= targets and bool(targets & held_xy)
+    errs["encode_offgrid"] = encode_check(v.predictor.model, vtask.to(dev), "validate")
+    errs["decode_grid"] = decode_check(era.predictor.model, task, era.predictor.dp,
+                                       era.pred_grid, "validate")
+    metrics = {"rmse": loss["rmse"], "mae": loss["mae"], "bias": loss["bias"],
+               "z_mean": cal["z_mean"], "z_std": cal["z_std"], "coverage_95": cal["coverage_95"],
+               "pit_z_std": pit["z_std"], "pit_coverage_95": pit["coverage_95"],
+               "crps": crps["crps"], "extrapolation_rmse": ext["extrapolation"]["rmse"],
+               "interpolation_rmse": ext["interpolation"]["rmse"], "base_rmse": lb["rmse"],
+               "base_mae": lb["mae"], "base_mean_of_means": ps["mean_of_means"]}
+    say("validate", f"{len(dates)} validation times, {len(held)} stations held out ({int(
+        full.points[0].mask.sum() - vtask.points[0].mask.sum())} context points), n "
+        f"{cal['n']}; " + ", ".join(f"{k} {val:.4f}" for k, val in metrics.items()))
+    band_sizes = {k: len(e) for k, e in bands["bands"].items()}
+    say("validate", f"elevation bands (stations): {band_sizes}; extrapolation box lat "
+        f"{box[0]:.3f}..{box[1]:.3f}: {len(ext['held_out_stations'])} stations, n "
+        f"{ext['extrapolation']['n']} / {ext['interpolation']['n']}; held-out stations absent "
+        f"from the context {absent}, present in the targets {present}; "
+        f"ValidateERA bitwise equal to a direct predict_grid on its swapped task {same}; "
+        f"peak memory {peak / 2**30:.2f} GiB; plain versions called on the card {plain}")
+    if not np.isfinite(list(metrics.values())).all():
+        raise AssertionError(f"non-finite validation metrics {metrics}")
+    for key in ("z_std", "pit_z_std"):
+        if not Z_STD_WINDOW[0] <= metrics[key] <= Z_STD_WINDOW[1]:
+            raise AssertionError(f"{key} {metrics[key]} outside {Z_STD_WINDOW}")
+    for key in ("coverage_95", "pit_coverage_95"):
+        if not COVERAGE_95_WINDOW[0] <= metrics[key] <= COVERAGE_95_WINDOW[1]:
+            raise AssertionError(f"{key} {metrics[key]} outside {COVERAGE_95_WINDOW}")
+    if not metrics["crps"] > 0 or not ext["held_out_stations"]:
+        raise AssertionError("CRPS not positive, or no station in the extrapolation box")
+    if not (absent and present):
+        raise AssertionError("the held-out stations are in the context or missing from targets")
+    if not all(same.values()):
+        raise AssertionError("ValidateERA.predict differs from predict_grid on its task")
+    if any(plain.values()):
+        raise AssertionError("a plain SetConv ran on the card in validation")
+    del v, vtask, full, direct, preds
+
+    # the transfer modes: a 72-time request (three overlapping 24-day windows)
+    windows = [times[i: i + N_TASKS] for i in (0, 8, 16)]
+    t72 = np.concatenate(windows)
+    task72 = era._swapped_task.fn(t72, {"temperature": base}, stations)
+    model, dp, vids = era.predictor.model, era.predictor.dp, era.run["task_loader"].target_var_IDs
+    aux = era.run["task_loader"].aux_at_targets
+    scale, offset = era.predictor._affines()
+    land = ~np.isnan(era.pred_grid.data)
+    results = {}
+    for up in (None, "float16"):
+        for t in (None, "float16", "int16", "int8"):
+            for threads in (1, 8):
+                p = Predictor(model, dp, vids, std_scale=era.predictor.std_scale,
+                              transfer_dtype=t, batch_chunk=N_TASKS, download_threads=threads,
+                              upload_dtype=up)
+                if not results:  # one warm-up of the chunked path
+                    p.predict_grid(task72, era.pred_grid, aux_at_targets=aux, times=t72)
+                setconv_cuda.reset_launch_counts()
+                out, ms, wall = timed(lambda: p.predict_grid(task72, era.pred_grid,
+                                                             aux_at_targets=aux, times=t72))
+                for k, n in setconv_cuda.launch_counts().items():
+                    totals[k] += n
+                results[(up, t, threads)] = (out, wall, ms, p.last_timings)
+    eps = float(np.finfo(np.float32).eps)
+    for (up, t, threads), (out, wall, ms, lt) in results.items():
+        ref = results[(up, None, 1)][0]
+        bits = {"int16": 16, "int8": 8}.get(t)
+        worst, over = {}, False
+        for key in ("mean", "std"):
+            r = ref[key].data.astype(np.float64)
+            err = np.abs(out[key].data - r)
+            mag = np.abs(r - offset[0]) if key == "mean" else np.abs(r)
+            if bits:
+                span = (np.nanmax(r, axis=(1, 2), keepdims=True)
+                        - np.nanmin(r, axis=(1, 2), keepdims=True))
+                bound = span / (2 ** bits - 1) / 2
+            elif t == "float16":
+                bound = F16_HALF_ULP * mag
+            else:
+                bound = np.zeros_like(r)
+            bound = bound + 4 * eps * np.nanmax(np.abs(r), axis=(1, 2), keepdims=True)
+            worst[key] = float(err[:, land].max())
+            over |= bool((err[:, land] > np.broadcast_to(bound, r.shape)[:, land]).any())
+        bitwise = all(out[k].data.tobytes() == results[(up, t, 1)][0][k].data.tobytes()
+                      for k in ("mean", "std"))
+        say("validate", f"transfer {t or 'float32'}, upload {up or 'float32'}, {threads} "
+            f"download threads ({TRANSFER_TIMES} times, chunks of {N_TASKS}): {wall:.4f} s wall, "
+            f"{ms:.1f} ms CUDA events, last_timings {lt}; max_abs_err against float32 mean "
+            f"{worst['mean']:.3e} std {worst['std']:.3e} (within its bound {not over}); "
+            f"bitwise equal to 1 thread {bitwise}")
+        if over or not bitwise:
+            raise AssertionError(f"transfer mode {(up, t, threads)} outside its bound or not "
+                                 "bitwise equal to one download thread")
+    # the float16 upload's own effect, on float32 maps
+    up_err = {}
+    for key in ("mean", "std"):
+        a = results[("float16", None, 1)][0][key].data
+        r = results[(None, None, 1)][0][key].data.astype(np.float64)
+        mag = np.abs(r - offset[0]) if key == "mean" else np.abs(r)
+        up_err[key] = float(np.abs(a - r)[:, land].max())
+        if up_err[key] > UPLOAD_F16_BOUND * float(np.nanmax(mag)):
+            raise AssertionError(f"the float16 upload moved {key} by {up_err[key]}")
+    say("validate", f"float16 upload against float32, float32 transfer: max_abs_err mean "
+        f"{up_err['mean']:.3e} std {up_err['std']:.3e} (bound {UPLOAD_F16_BOUND} x the map's "
+        f"largest normalised value x {abs(scale[0]):.3f}); launches {totals}; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s wall")
+    return totals, errs
+
+
+def validate_reference(dev, setconv) -> None:
+    """Phase 13: ``Validate`` on a small ConvNP of each head, on the GPU
+    (kernels) and on the CPU (plain versions) from the same weights and run
+    dict: ``calculate_loss``, ``calibration_stats``, ``pit_stats``,
+    ``crps`` (the mixed heads on the same fixed samples, then once from the
+    card's own generator) and, for bernoulli-gamma, ``wet_dry_skill``."""
+    import torch
+
+    from deepsensornz_tpu_torch.data.processor import DataProcessor
+    from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+    from deepsensornz_tpu_torch.pipeline.validate import Validate
+    from deepsensornz_tpu_torch.task.loader import TaskLoader
+
+    heads = {"gnp": ("temperature", {"method": "mean_std", "params": {"mean": 12.0, "std": 5.0}}),
+             "cnp": ("temperature", {"method": "mean_std", "params": {"mean": 12.0, "std": 5.0}}),
+             "bernoulli-gamma": ("precipitation", {"method": "positive_semidefinite",
+                                                   "params": {"std": 4.0}}),
+             "cnp-spikes-beta": ("humidity", {"method": "min_max",
+                                              "params": {"min": 0.0, "max": 100.0}})}
+    for i, (likelihood, (variable, norm)) in enumerate(heads.items()):
+        target = f"{variable}_station"
+        times, base, aux, highres, stations = service_data(
+            60 + i, n_times=6, base_hw=(12, 11), aux_hw=(30, 28), highres_hw=(36, 34),
+            n_stations=40, target_var=target)
+        v = stations[target]
+        if likelihood == "bernoulli-gamma":
+            stations[target] = np.maximum(v, 0.0) * 2.0  # dry (0) about half the time
+        elif likelihood == "cnp-spikes-beta":
+            stations[target] = np.clip(0.5 + 0.4 * v, 0.0, 1.0)  # spikes at 0 and 1
+        tl = TaskLoader([base, aux, stations], stations, aux_at_targets=highres,
+                        internal_density=40)
+        dp = DataProcessor()
+        dp.config[target] = norm
+        small = ConvNPConfig(unet_channels=(8, 8), likelihood=likelihood, internal_density=40,
+                             rank=4, decoder_channels=8, mlp_hidden=8, compute_dtype="float32")
+        example = tl(list(times[:1]))
+        dates = list(times[:4])
+        held = ["0", "1", "2"]
+        B, M, n = len(dates), tl.target_capacity, 32
+        r = np.random.default_rng(i).random((n, B, M, 1))
+        xs = torch.from_numpy(np.where(r < 0.3, 0.0, np.where(r > 0.9, 1.0, r)).astype(np.float32))
+        head = type(small.make_likelihood())
+        got = {}
+        with plain_calls_on_card(setconv) as plain:
+            for d in (dev, torch.device("cpu")):
+                model = build_model(small, example, seed=11 + i, device=d)
+                val = Validate(run={"model": model, "params": model.state_dict(),
+                                    "task_loader": tl, "data_processor": dp, "metadata": {},
+                                    "variable": variable, "std_scale": 0.8})
+                res = {"loss": val.calculate_loss(dates, held),
+                       "cal": val.calibration_stats(dates, held), "pit": val.pit_stats(dates, held)}
+                if likelihood in ("bernoulli-gamma", "cnp-spikes-beta"):
+                    own = val.crps(dates, held, n_samples=n)["crps"]
+                    sample = head.sample
+                    head.sample = lambda self, raw, gen, m: xs[:m].to(raw.device)
+                    try:
+                        res["crps"] = val.crps(dates, held, n_samples=n)
+                    finally:
+                        head.sample = sample
+                    res["own generator crps"] = own
+                else:
+                    res["crps"] = val.crps(dates, held)
+                if likelihood == "bernoulli-gamma":
+                    res["wet"] = val.wet_dry_skill(dates, remove_stations=held)
+                got[d.type] = res
+        g, c = got["cuda"], got["cpu"]
+        pairs = {"rmse": (g["loss"]["rmse"], c["loss"]["rmse"], VAL_REF_RTOL),
+                 "z_mean": (g["cal"]["z_mean"], c["cal"]["z_mean"], VAL_REF_RTOL),
+                 "z_std": (g["cal"]["z_std"], c["cal"]["z_std"], VAL_REF_RTOL),
+                 "pit z_mean": (g["pit"]["z_mean"], c["pit"]["z_mean"], VAL_REF_PIT_RTOL),
+                 "pit z_std": (g["pit"]["z_std"], c["pit"]["z_std"], VAL_REF_PIT_RTOL),
+                 "crps": (g["crps"]["crps"], c["crps"]["crps"], VAL_REF_RTOL)}
+        if likelihood == "bernoulli-gamma":
+            pairs["brier"] = (g["wet"]["brier"], c["wet"]["brier"], VAL_REF_RTOL)
+        bad = [k for k, (a, b, tol) in pairs.items()
+               if not (np.isfinite(a) and abs(a - b) <= tol * abs(b) + tol)]
+        for key in ("cal", "pit"):
+            nn = c[key]["n"]
+            if g[key]["n"] != nn or abs(g[key]["coverage_95"] - c[key]["coverage_95"]) > 1.0 / nn:
+                bad.append(f"{key} coverage")
+        if likelihood == "bernoulli-gamma" and abs(g["wet"]["hit_rate"]
+                                                   - c["wet"]["hit_rate"]) > 1.0 / c["wet"]["n"]:
+            bad.append("hit_rate")
+        own = g.get("own generator crps")
+        say("validate-reference", f"{likelihood}: " + ", ".join(
+            f"{k} GPU {a:.6f} CPU {b:.6f}" for k, (a, b, _) in pairs.items())
+            + f"; coverage_95 GPU {g['cal']['coverage_95']:.4f} CPU {c['cal']['coverage_95']:.4f}"
+            + (f"; crps from the card's generator {own:.6f}" if own is not None else "")
+            + f"; plain versions called on the card {dict(plain)}")
+        if bad or (own is not None and not own > 0) or any(plain.values()):
+            raise AssertionError(f"{likelihood}: validation on the GPU disagrees with the CPU: "
+                                 f"{bad}")
 
 
 def train_reference(dev, setconv_cuda) -> None:
-    """Phase 12: a small train step on the GPU (kernels) against the CPU
+    """Phase 14: a small train step on the GPU (kernels) against the CPU
     (plain versions) from the same weights and batch."""
     import torch
 
@@ -1371,6 +1745,7 @@ def train_reference(dev, setconv_cuda) -> None:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -1457,15 +1832,21 @@ def main() -> int:
 
     results["encode_offgrid_grad"] = train_kernels(dev, model, setconv, setconv_cuda)
     train_counts = train_flagship(dev, model, cfg, setconv_cuda)
-    pipeline_counts, pipeline_errs = pipeline_phase(dev, cfg, setconv, setconv_cuda)
+    pipeline_counts, pipeline_errs, validate_counts = pipeline_phase(dev, cfg, setconv,
+                                                                     setconv_cuda)
     for name, err in pipeline_errs.items():
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    t0 = time.perf_counter()
+    validate_reference(dev, setconv)
+    say("validate-reference", f"{time.perf_counter() - t0:.1f} s wall")
     train_reference(dev, setconv_cuda)
 
     phases = {"serve": serve_counts, "service": service_counts, "sample-serve": sample_counts,
-              "ar": ar_counts, "train": train_counts, "pipeline": pipeline_counts}
+              "ar": ar_counts, "train": train_counts, "pipeline": pipeline_counts,
+              "validate": validate_counts}
     launches = {name: sum(c[name] for c in phases.values()) for name in KERNELS}
     say("launches", "; ".join(f"{k} {v}" for k, v in phases.items()))
+    say("total", f"{time.perf_counter() - t_start:.1f} s wall, the kernels' build included")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "launches": launches[name], **results[name]}

@@ -8,21 +8,27 @@ Counterpart of ``Predictor`` in ``deepsensornz_tpu/infer/predict.py``:
   the head's mean/std and, with ``n_samples > 0``, joint samples over the
   whole grid; gathers the land cells on the device, and returns them
   unnormalised as ``Field``s with NaN sea cells. ``batch_chunk`` splits a
-  long batch into fixed-size chunks that run one after another.
+  long batch into fixed-size chunks: every chunk is launched first, and
+  ``download_threads`` workers copy, dequantise and scatter each chunk's
+  result into the full maps while the later chunks run.
 - ``predict_points`` gives mean/std (and ``p_wet`` for bernoulli-gamma) at
   the task's off-grid targets.
 - ``ar_sample_grid`` draws coherent AR samples on a subsampled grid and
   interpolates them back onto the full grid.
 
-Every request runs under ``torch.inference_mode()``. The compressed
-transfer modes (``transfer_dtype``, ``upload_dtype``) and threaded
-downloads (``download_threads``) are not ported and raise
-``NotImplementedError``.
+Every request runs under ``torch.inference_mode()``. The transfer modes
+shrink what crosses the host link: ``transfer_dtype`` casts the finished
+maps on the device (``"float16"``/``"bfloat16"``) or quantises them there
+(``"int16"``/``"int8"``: per-(task, channel) ``lo``/``scale`` over the
+cells, dequantised on the host, at most ``scale/2`` off); ``upload_dtype``
+casts the task's value leaves on the host and upcasts them on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -32,7 +38,7 @@ from deepsensornz_tpu_torch.data.grid import Dataset, Field, interp_grid_at_poin
 from deepsensornz_tpu_torch.data.processor import DataProcessor
 from deepsensornz_tpu_torch.infer.ar import ar_sample
 from deepsensornz_tpu_torch.task.batching import take
-from deepsensornz_tpu_torch.task.task import TaskBatch
+from deepsensornz_tpu_torch.task.task import GridContext, PointContext, TaskBatch
 
 
 class Prediction(Dataset):
@@ -77,27 +83,129 @@ def _channels(aux) -> list:
     return list(aux.values()) if isinstance(aux, Dataset) else [aux]
 
 
+_QUANT_BITS = {"int16": 16, "int8": 8}
+_CASTS = {"float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+def _quantize(v: torch.Tensor, bits: int) -> dict:
+    """Affine quantisation of (..., cells, C) on the device, with one
+    ``lo``/``scale`` per (leading index, channel) over the cell axis (the
+    land cells, or every cell of the grid): ``q = round((v - lo)/scale) -
+    2^(b-1)``, ``scale = (max - min)/(2^b - 1)``, so the host's
+    :func:`_dequantize_host` is at most ``scale/2`` off."""
+    lo = v.amin(dim=-2, keepdim=True)
+    hi = v.amax(dim=-2, keepdim=True)
+    scale = torch.clamp((hi - lo) / float(2 ** bits - 1), min=1e-12)
+    q = torch.round((v - lo) / scale) - 2.0 ** (bits - 1)
+    return {"q": q.to(torch.int8 if bits == 8 else torch.int16), "lo": lo, "scale": scale}
+
+
+def _dequantize_host(d) -> np.ndarray:
+    """float32 numpy of a downloaded map: ``(q + 2^(b-1))·scale + lo`` for
+    a quantised one, the upcast value for a cast one."""
+    if not isinstance(d, dict):
+        return d.float().numpy()
+    q = d["q"].numpy()
+    half = float(2 ** (q.dtype.itemsize * 8 - 1))
+    return (q.astype(np.float32) + half) * d["scale"].numpy() + d["lo"].numpy()
+
+
+def _download(out: dict, device: torch.device) -> tuple[dict, Optional[torch.cuda.Event]]:
+    """Start copying each tensor of ``out`` into pinned host memory; returns
+    the host tree and an event that completes with the copies (on the CPU:
+    the tensors themselves and None)."""
+    if device.type != "cuda":
+        return out, None
+
+    def copy(t):
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return h.copy_(t, non_blocking=True)
+
+    host = {k: ({kk: copy(vv) for kk, vv in v.items()} if isinstance(v, dict) else copy(v))
+            for k, v in out.items()}
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _upload(task: TaskBatch, device: torch.device, upload_dtype: Optional[str]) -> TaskBatch:
+    """The grid path's task on ``device``: its target-side leaves, unused
+    when predicting on a grid, cut to one placeholder slot; with
+    ``upload_dtype`` the value leaves (grid and point ``y`` and ``mask``)
+    cast on the host and upcast to float32 on the device. Coordinates stay
+    float32."""
+    dt = _CASTS[upload_dtype] if upload_dtype else None
+
+    def up(t):
+        if t is None:
+            return None
+        if dt is None:
+            return t.to(device)
+        return t.to(dt).to(device).float()
+
+    return TaskBatch(
+        grids=tuple(GridContext(g.x1.to(device), g.x2.to(device), up(g.y), up(g.mask))
+                    for g in task.grids),
+        points=tuple(PointContext(p.x.to(device), up(p.y), up(p.mask)) for p in task.points),
+        xt=task.xt[:, :1].to(device), yt=None, yt_mask=task.yt_mask[:, :1].to(device),
+        yt_aux=None, x1g=task.x1g.to(device), x2g=task.x2g.to(device))
+
+
+def _scatter(a: np.ndarray, land: Optional[np.ndarray], Ht: int, Wt: int) -> np.ndarray:
+    """(..., cells, C) → (..., Ht, Wt, C), NaN outside ``land`` when given."""
+    lead = a.shape[:-2]
+    if land is not None:
+        full = np.full(lead + (Ht * Wt, a.shape[-1]), np.nan, np.float32)
+        full[..., land, :] = a
+        a = full
+    return a.reshape(lead + (Ht, Wt, a.shape[-1]))
+
+
+def _scatter_into(dst: np.ndarray, a: np.ndarray, land: Optional[np.ndarray]) -> None:
+    """Write (n, cells, C) into the contiguous (n, Ht, Wt, C) ``dst``, NaN
+    outside ``land`` when given."""
+    flat = dst.reshape(dst.shape[0], -1, dst.shape[-1])
+    if land is None:
+        flat[...] = a
+    else:
+        flat[...] = np.nan
+        flat[:, land, :] = a
+
+
 class Predictor:
     """Bind (model, data_processor, target variable) into a predict callable.
     The model's parameters decide the device every request runs on.
 
     ``batch_chunk``: split gridded predictions into chunks of this many
     tasks (the tail padded by repeating its last task, the pad trimmed), so
-    device memory is bounded by the chunk, not the batch. Mean and std do
-    not depend on the chunking; joint samples draw per-chunk seeds
-    (``seed + chunk offset``) and do."""
+    device memory is bounded by the chunk, not the batch. The batch is
+    uploaded once and every chunk launched before the first result is
+    read; ``download_threads`` workers wait for each chunk's copy to the
+    host and dequantise and scatter it into the full maps, so the copies
+    overlap the chunks still running. Mean and std do not depend on the
+    chunking or the number of threads; joint samples draw per-chunk seeds
+    (``seed + chunk offset``) and depend on the chunking.
+
+    ``transfer_dtype``: ``None`` (float32), ``"float16"``/``"bfloat16"``
+    (cast on the device, upcast on the host) or ``"int16"``/``"int8"``
+    (quantised on the device, see :func:`_quantize`). ``upload_dtype``:
+    ``None`` or ``"float16"``/``"bfloat16"`` for the task's value leaves
+    (see :func:`_upload`)."""
 
     def __init__(self, model, data_processor: DataProcessor, target_var,
                  std_scale: float = 1.0, transfer_dtype: Optional[str] = None,
                  batch_chunk: Optional[int] = None, download_threads: int = 1,
                  upload_dtype: Optional[str] = None):
-        for name, v in (("transfer_dtype", transfer_dtype), ("upload_dtype", upload_dtype)):
-            if v is not None:
-                raise NotImplementedError(f"Predictor({name}=...) is not ported")
-        if download_threads != 1:
-            raise NotImplementedError("Predictor(download_threads=...) is not ported")
+        if transfer_dtype is not None and transfer_dtype not in {**_QUANT_BITS, **_CASTS}:
+            raise ValueError(f"transfer_dtype must be None, 'float16', 'bfloat16', 'int16' or "
+                             f"'int8'; got {transfer_dtype!r}")
+        if upload_dtype is not None and upload_dtype not in _CASTS:
+            raise ValueError(f"upload_dtype must be None, 'float16' or 'bfloat16'; "
+                             f"got {upload_dtype!r}")
         if batch_chunk is not None and batch_chunk < 1:
             raise ValueError(f"batch_chunk must be >= 1, got {batch_chunk}")
+        if download_threads < 1:
+            raise ValueError(f"download_threads must be >= 1, got {download_threads}")
         self.model = model
         self.dp = data_processor
         self.target_vars = [target_var] if isinstance(target_var, str) else list(target_var)
@@ -108,7 +216,13 @@ class Predictor:
                              f"(got {self.target_vars})")
         self.likelihood = model.cfg.make_likelihood()
         self.std_scale = float(std_scale)
+        self.transfer_dtype = transfer_dtype
+        self.upload_dtype = upload_dtype
         self.batch_chunk = batch_chunk
+        self.download_threads = int(download_threads)
+        # wall split of the last chunked predict_grid: the upload, then the
+        # chunks' launches, copies and scatters, which overlap
+        self.last_timings: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
@@ -210,67 +324,88 @@ class Predictor:
         return Prediction(fields)
 
     def _forward_chunked(self, task, xt1, xt2, aux, n_samples, seed, outputs, land):
-        """:meth:`_forward` over the whole batch, or chunk by chunk into
-        preallocated host maps when ``batch_chunk`` is set and exceeded."""
+        """Host float32 maps mean/std (B, Ht, Wt, dy) and samples
+        (n, B, Ht, Wt, dy) or None, NaN outside ``land`` when given: one
+        forward of the whole batch, or chunk by chunk when ``batch_chunk``
+        is set and exceeded."""
+        dev = self.device
         B, chunk = task.batch_size, self.batch_chunk
+        Ht, Wt, dy = len(xt1), len(xt2), self.model.cfg.dim_yt
         if not chunk or B <= chunk:
-            return self._forward(task, xt1, xt2, aux, n_samples, seed, outputs, land)
-        full = None
-        for off in range(0, B, chunk):
-            idx = np.arange(off, min(off + chunk, B))
-            n = len(idx)
-            idx = np.concatenate([idx, np.full(chunk - n, idx[-1], idx.dtype)])
-            got = self._forward(take(task, idx), xt1, xt2, aux, n_samples, seed + off,
-                                outputs, land)
-            if full is None:
-                full = [None if a is None else
-                        np.empty(a.shape[:-4] + (B,) + a.shape[-3:], np.float32) for a in got]
-            for dst, a in zip(full, got):
-                if a is not None:
-                    dst[..., off:off + n, :, :, :] = a[..., :n, :, :, :]
-        return tuple(full)
+            with torch.inference_mode():
+                out = self._device_forward(_upload(task, dev, self.upload_dtype), xt1, xt2, aux,
+                                           n_samples, seed, outputs, land)
+                host, event = _download(out, dev)
+            if event is not None:
+                event.synchronize()
+            got = {k: _scatter(_dequantize_host(v), land, Ht, Wt) for k, v in host.items()}
+            return got["mean"], got.get("std"), got.get("samples")
 
-    def _forward(self, task, xt1, xt2, aux, n_samples, seed, outputs, land):
-        """Forward, moments and samples on the device; host arrays mean/std
-        (B, Ht, Wt, dy) and samples (n, B, Ht, Wt, dy) or None, NaN outside
-        ``land`` when given."""
+        full = {k: np.empty((B, Ht, Wt, dy), np.float32) for k in outputs}
+        if n_samples > 0:
+            full["samples"] = np.empty((n_samples, B, Ht, Wt, dy), np.float32)
+
+        def fetch_into(host, event, off):
+            if event is not None:
+                event.synchronize()
+            n = min(off + chunk, B) - off
+            for k, v in host.items():
+                a = _dequantize_host(v)
+                if k == "samples":
+                    for i in range(n_samples):
+                        _scatter_into(full[k][i, off:off + n], a[i, :n], land)
+                else:
+                    _scatter_into(full[k][off:off + n], a[:n], land)
+
+        with torch.inference_mode():
+            t_up = time.perf_counter()
+            task = _upload(task, dev, self.upload_dtype)  # the whole batch, once
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t_up = time.perf_counter() - t_up
+            t_run = time.perf_counter()
+            futures = []
+            with ThreadPoolExecutor(self.download_threads) as pool:
+                for off in range(0, B, chunk):
+                    idx = np.arange(off, min(off + chunk, B))
+                    idx = np.concatenate([idx, np.full(chunk - len(idx), idx[-1], idx.dtype)])
+                    out = self._device_forward(take(task, torch.from_numpy(idx).to(dev)), xt1, xt2,
+                                               aux, n_samples, seed + off, outputs, land)
+                    futures.append(pool.submit(fetch_into, *_download(out, dev), off))
+                for f in futures:
+                    f.result()
+        self.last_timings = {"upload_s": round(t_up, 3),
+                             "overlap_s": round(time.perf_counter() - t_run, 3)}
+        return full["mean"], full.get("std"), full.get("samples")
+
+    def _device_forward(self, task, xt1, xt2, aux, n_samples, seed, outputs, land) -> dict:
+        """Forward, moments and samples of a task on the device, in the
+        transfer format: (B, cells, dy) mean/std and (n, B, cells, dy)
+        samples, over the ``land`` cells when given, else every cell;
+        each a tensor, or a quantised dict (:func:`_quantize`)."""
         dev = self.device
         lik = self.likelihood
         B, Ht, Wt = task.batch_size, len(xt1), len(xt2)
-        with torch.inference_mode():
-            # target-side leaves are unused on the grid path: not uploaded
-            task = TaskBatch(
-                grids=tuple(g.to(dev) for g in task.grids),
-                points=tuple(p.to(dev) for p in task.points),
-                xt=task.xt[:, :1], yt=None, yt_mask=task.yt_mask[:, :1], yt_aux=None,
-                x1g=task.x1g.to(dev), x2g=task.x2g.to(dev))
-            aux_d = (None if aux is None else
-                     torch.from_numpy(aux).to(dev).expand(B, *aux.shape))
-            raw = self.model(task, target_grid=(torch.from_numpy(xt1).to(dev),
-                                                torch.from_numpy(xt2).to(dev), aux_d))
-            raw = lik.rescale_raw(raw, self.std_scale).reshape(B, Ht * Wt, -1)
-            mean, std = lik.mean_std(raw)
-            out = {k: v for k, v in (("mean", mean), ("std", std)) if k in outputs}
-            if n_samples > 0:
-                # over the flattened grid, so the gnp head samples jointly
-                gen = torch.Generator(device=dev).manual_seed(int(seed))
-                out["samples"] = lik.sample(raw, gen, n_samples)  # (n, B, Ht·Wt, dy)
-            if land is not None:
-                idx = torch.from_numpy(land).to(dev)
-                out = {k: v.index_select(-2, idx) for k, v in out.items()}
-            host = {k: v.float().cpu().numpy() for k, v in out.items()}
-
-        def expand(a):
-            if a is None:
-                return None
-            lead = a.shape[:-2]
-            if land is not None:
-                full = np.full(lead + (Ht * Wt, a.shape[-1]), np.nan, np.float32)
-                full[..., land, :] = a
-                a = full
-            return a.reshape(lead + (Ht, Wt, a.shape[-1]))
-
-        return expand(host["mean"]), expand(host.get("std")), expand(host.get("samples"))
+        aux_d = None if aux is None else torch.from_numpy(aux).to(dev).expand(B, *aux.shape)
+        raw = self.model(task, target_grid=(torch.from_numpy(xt1).to(dev),
+                                            torch.from_numpy(xt2).to(dev), aux_d))
+        raw = lik.rescale_raw(raw, self.std_scale).reshape(B, Ht * Wt, -1)
+        mean, std = lik.mean_std(raw)
+        out = {k: v for k, v in (("mean", mean), ("std", std)) if k in outputs}
+        if n_samples > 0:
+            # over the flattened grid, so the gnp head samples jointly
+            gen = torch.Generator(device=dev).manual_seed(int(seed))
+            out["samples"] = lik.sample(raw, gen, n_samples)  # (n, B, Ht·Wt, dy)
+        if land is not None:
+            idx = torch.from_numpy(land).to(dev)
+            out = {k: v.index_select(-2, idx) for k, v in out.items()}
+        out = {k: v.float() for k, v in out.items()}
+        bits = _QUANT_BITS.get(self.transfer_dtype)
+        if bits:
+            return {k: _quantize(v, bits) for k, v in out.items()}
+        if self.transfer_dtype:
+            return {k: v.to(_CASTS[self.transfer_dtype]) for k, v in out.items()}
+        return out
 
     def predict_points(self, task: TaskBatch, unnormalise: bool = True,
                        post_transform=None) -> dict[str, np.ndarray]:

@@ -298,3 +298,92 @@ def test_pipeline_trains_on_the_card_as_on_the_cpu(cuda, tmp_path, monkeypatch):
     assert setconv_cuda.launch_counts()["decode_grid"] == 1
     assert setconv_cuda.launch_counts()["encode_offgrid"] == 1
     assert np.asarray(resp["mean"]).shape == (2, 48, 48)
+
+
+@pytest.fixture(scope="module")
+def small_runs(tmp_path_factory):
+    """{likelihood: (run directory, raw base, DEM, raw stations)}: a small
+    cnp and gnp run trained on the CPU for one epoch."""
+    from deepsensornz_tpu_torch.data.synthetic import synthetic_bundle
+    from deepsensornz_tpu_torch.pipeline.preprocess import PreprocessForDownscaling
+    from deepsensornz_tpu_torch.pipeline.train import Train
+
+    base, dem, stations = synthetic_bundle(n_times=8, base_hw=(16, 16), dem_hw=(48, 48),
+                                           n_stations=16)
+    bundle = PreprocessForDownscaling("temperature").run_processing_sequence(
+        dem, {"temperature": base}, stations, highres_factor=2, lowres_factor=4,
+        include_time_of_year=True)
+    out = {}
+    for likelihood in ("cnp", "gnp"):
+        tr = Train(bundle, seed=1, device="cpu")
+        tr.setup_task_loader(internal_density=24)
+        tr.initialise_model(unet_channels=(8, 8), likelihood=likelihood, rank=4,
+                            compute_dtype="float32", decoder_channels=8, mlp_hidden=8)
+        run_dir = str(tmp_path_factory.mktemp(likelihood))
+        tr.train_model(n_epochs=1, batch_size=4, lr=1e-3, verbose=False, model_dir=run_dir)
+        out[likelihood] = (run_dir, base, dem, stations)
+    return out
+
+
+@pytest.mark.parametrize("likelihood", ["cnp", "gnp"])
+def test_validate_on_the_card_as_on_the_cpu(cuda, small_runs, likelihood, monkeypatch):
+    """``Validate`` loaded on the card (B1 for every prediction) against the
+    same run on the CPU: losses and z moments to rtol 1e-4, coverages to
+    1/n, CRPS to rtol 1e-4; no plain SetConv on the card."""
+    from deepsensornz_tpu_torch.pipeline.validate import Validate
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    run_dir, base, _, stations = small_runs[likelihood]
+    times = list(base.coords["time"][:4])
+    held = [str(i) for i in np.unique(stations["station_id"])[:3]]
+    got = {}
+    for dev in ("card", "cpu"):
+        v = Validate(run_dir) if dev == "card" else Validate(run_dir, device="cpu")
+        setconv_cuda.reset_launch_counts()
+        got[dev] = (v.calculate_loss(times, held), v.calibration_stats(times, held),
+                    v.pit_stats(times, held), v.crps(times, held))
+        got[dev + " launches"] = setconv_cuda.launch_counts()
+    assert got["card launches"]["encode_offgrid"] == 4  # one per prediction
+    assert got["cpu launches"]["encode_offgrid"] == 0
+    (la, ca, pa, ra), (lb, cb, pb, rb) = got["card"], got["cpu"]
+    np.testing.assert_allclose([la["rmse"], la["mae"]], [lb["rmse"], lb["mae"]], rtol=1e-4)
+    for a, b in ((ca, cb), (pa, pb)):
+        assert a["n"] == b["n"] > 0
+        np.testing.assert_allclose([a["z_mean"], a["z_std"]], [b["z_mean"], b["z_std"]],
+                                   rtol=1e-4, atol=1e-4)
+        assert abs(a["coverage_95"] - b["coverage_95"]) <= 1.0 / b["n"] + 1e-12
+    np.testing.assert_allclose(ra["crps"], rb["crps"], rtol=1e-4)
+
+
+def test_int16_predict_grid_on_the_card(cuda, small_runs, monkeypatch):
+    """``ValidateERA`` on the card: int16 within half a step (plus four
+    float32 roundings of the map's largest magnitude) of float32; 8
+    download threads bitwise equal to one on a chunked request; B2 once per
+    chunk."""
+    from deepsensornz_tpu_torch.pipeline.validate import ValidateERA
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    run_dir, base, dem, stations = small_runs["gnp"]
+    times = base.coords["time"][1:7]
+    sel = stations[np.isin(stations["time"], np.asarray(times, stations["time"].dtype))]
+    fields = {"temperature": base}
+    f32 = ValidateERA(run_dir, dem, highres_factor=2)
+    want = f32.predict(times, fields, station_df=sel)
+    maps = []
+    for threads in (1, 8):
+        era = ValidateERA(run=f32.run, pred_grid=f32.pred_grid, transfer_dtype="int16",
+                          batch_chunk=4, download_threads=threads)
+        setconv_cuda.reset_launch_counts()
+        maps.append(era.predict(times, fields, station_df=sel))
+        assert setconv_cuda.launch_counts()["decode_grid"] == 2
+    eps = float(np.finfo(np.float32).eps)
+    for key in ("mean", "std"):
+        assert maps[0][key].data.tobytes() == maps[1][key].data.tobytes()
+        ref = want[key].data
+        land = ~np.isnan(ref)
+        span = np.nanmax(ref, axis=(1, 2), keepdims=True) - np.nanmin(ref, axis=(1, 2),
+                                                                      keepdims=True)
+        bound = span / 65535 / 2 + 4 * eps * np.nanmax(np.abs(ref), axis=(1, 2), keepdims=True)
+        err = np.abs(maps[1][key].data.astype(np.float64) - ref)
+        assert np.array_equal(np.isnan(maps[1][key].data), ~land)
+        assert (err[land] <= np.broadcast_to(bound, ref.shape)[land]).all(), key

@@ -9,8 +9,10 @@ points and by AR sampling, score every head (``sample``, ``cdf_bounds``,
 checkpoint), serve a run directory (a ``TaskLoader`` over
 ``StationFrame`` objects, the run written with ``params.pt`` and
 ``params.msgpack``, one ``PredictService.predict`` and one HTTP round
-trip), and train a run from data: synthetic data → preprocessing →
-``Train.train_model`` → ``load_run`` → ``PredictService``.
+trip), train a run from data: synthetic data → preprocessing →
+``Train.train_model`` → ``load_run`` → ``PredictService``, and validate
+such a run: ``Validate``'s metrics with a holdout, ``ValidateERA`` from raw
+fields and stations, and the quantised, chunked, threaded transfer.
 The kernel module must also import without ``nvcc``: the kernels are built
 at first use on the card.
 """
@@ -246,6 +248,61 @@ print("pipeline")
 """)
     assert proc.returncode == 0, proc.stderr
     assert "pipeline" in proc.stdout and "the port's TaskLoader layout" in proc.stdout
+
+
+def test_port_validates_a_run_without_jax_pandas_or_msgpack(tmp_path):
+    proc = _run(_BLOCKED_ALL + f"""
+import numpy as np
+from deepsensornz_tpu_torch.data.synthetic import synthetic_bundle
+from deepsensornz_tpu_torch.pipeline.preprocess import PreprocessForDownscaling
+from deepsensornz_tpu_torch.pipeline.train import Train
+from deepsensornz_tpu_torch.pipeline.validate import Validate, ValidateERA
+base, dem, stations = synthetic_bundle(n_times=8, base_hw=(16, 16), dem_hw=(48, 48),
+                                       n_stations=16)
+out = PreprocessForDownscaling("temperature").run_processing_sequence(
+    dem, {{"temperature": base}}, stations, highres_factor=2, lowres_factor=4,
+    include_time_of_year=True)
+tr = Train(out, device="cpu")
+tr.setup_task_loader(internal_density=24)
+tr.initialise_model(unet_channels=(8, 8), likelihood="cnp", compute_dtype="float32",
+                    decoder_channels=8, mlp_hidden=8)
+run_dir = {str(tmp_path / "run")!r}
+tr.train_model(n_epochs=1, batch_size=4, lr=1e-3, model_dir=run_dir, verbose=False)
+v = Validate(run_dir, device="cpu")
+times = list(base.coords["time"][:4])
+held = [str(i) for i in np.unique(stations["station_id"])[:3]]
+task = v._make_tasks(times, held)
+assert task.points[0].mask.sum() < v._make_tasks(times).points[0].mask.sum()
+loss = v.calculate_loss(times, held)
+cal = v.calibration_stats(times, held)
+pit = v.pit_stats(times, held)
+crps = v.crps(times, held)
+ext = v.extrapolation_loss(times, lat_range=(-90.0, float(np.median(stations["latitude"]))))
+bands = v.elevation_band_errors(times, elevation_lookup=lambda la, lo: 100.0,
+                                errors=loss["errors"], xt=loss["xt"])
+sel = stations[np.isin(stations["time"], np.asarray(times, stations["time"].dtype))]
+b = v.calculate_loss_base(base, sel)
+ps = v.per_station_loss_base(base, stations, dates=times)
+vals = [loss["rmse"], cal["z_std"], pit["z_std"], crps["crps"], ext["extrapolation"]["rmse"],
+        b["rmse"], ps["mean_of_means"]]
+assert np.isfinite(vals).all() and crps["crps"] > 0 and sum(map(len, bands["bands"].values()))
+era = ValidateERA(run_dir, dem, highres_factor=2, transfer_dtype="int16", batch_chunk=2,
+                  download_threads=3, upload_dtype="float16", device="cpu")
+pred = era.predict(base.coords["time"][1:6], {{"temperature": base}}, station_df=sel,
+                   remove_stations=held)
+sea = np.isnan(era.pred_grid.data)
+assert pred["mean"].shape == (5, 24, 24) and np.isfinite(pred["mean"].data[:, ~sea]).all()
+assert set(era.predictor.last_timings) == {{"upload_s", "overlap_s"}}
+empty = ValidateERA(run=era.run, pred_grid=era.pred_grid).predict(
+    base.coords["time"][:2], {{"temperature": base}})
+assert np.isnan(empty["std"].data[:, sea]).all() and (empty["std"].data[:, ~sea] > 0).all()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "flax", "optax", "deepsensornz_tpu", "pandas", "msgpack") and sys.modules[m] is not None)
+assert not leaked, leaked
+print("validated", vals)
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "validated" in proc.stdout
 
 
 def test_kernel_module_imports_without_nvcc():

@@ -176,12 +176,35 @@ def test_unnormalisation_is_the_target_affine(setting):
     (dict(upload_dtype="float16"), {}), (dict(transfer_dtype="int8"), {}),
 ])
 def test_unported_options_raise(setting, kw, call_kw):
-    """The compressed transfer modes and threaded downloads are not ported
-    (samples and batch chunking are: see the tests below)."""
+    """The compressed transfer modes and threaded downloads, once not
+    ported, are accepted and match the JAX ``Predictor``'s same mode, in
+    normalised units: float16 to one unit in its last place (2^-10 of the
+    value), int8 to one step of each (task, channel) map (its range / 255),
+    each on top of the float32 tolerance (the two sides' float32 maps may
+    round to neighbouring values); the rest to the float32 tolerance.
+    Unknown modes raise ``ValueError``."""
     s = setting
-    with pytest.raises(NotImplementedError):
-        Predictor(s["model"], s["dp"], s["st_col"], **kw).predict_grid(
-            s["task"], s["dem"], aux_at_targets=s["aux"], **call_kw)
+    jp = JPredictor(s["jpred"].model, s["jpred"].params, s["jpred"].dp, s["st_col"], **kw)
+    tp = Predictor(s["model"], s["dp"], s["st_col"], **kw)
+    a = jp.predict_grid(s["jtask"], s["jdem"], aux_at_targets=s["jaux"], unnormalise=False,
+                        **call_kw)
+    b = tp.predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"], unnormalise=False,
+                        **call_kw)
+    for key in ("mean", "std"):
+        want, got = a[key].data, b[key].data
+        land = ~np.isnan(want)
+        np.testing.assert_array_equal(np.isnan(got), ~land)
+        tol = 1e-5 * np.abs(want) + 1e-5 * float(np.nanmax(np.abs(want)))
+        if kw.get("transfer_dtype") == "float16":
+            tol = tol + 2.0 ** -10 * np.abs(want)
+        elif kw.get("transfer_dtype") == "int8":
+            span = np.nanmax(want, axis=(1, 2), keepdims=True) - np.nanmin(want, axis=(1, 2),
+                                                                           keepdims=True)
+            tol = tol + span / 255.0
+        assert (np.abs(got - want)[land] <= tol[land]).all(), key
+    with pytest.raises(ValueError):
+        Predictor(s["model"], s["dp"], s["st_col"],
+                  **{k: ("int4" if isinstance(v, str) else 0) for k, v in kw.items()})
 
 
 @pytest.mark.parametrize("likelihood,dim_yt", [("gnp", 1), ("cnp", 2), ("bernoulli-gamma", 1),

@@ -8,11 +8,14 @@ loader, holding pandas DataFrames), ``data_processor.json``,
 ``metadata.json`` (with a fitted ``std_scale``) and ``params.msgpack``.
 
 The port reads that directory on the CPU and serves it; its responses must
-match the JAX ``PredictService`` (built with ``transfer_dtype=None``) to
-rtol 1e-4 plus 1e-5 times the field's largest magnitude (float32 forwards
-in different summation orders), with identical sea cells, coordinates and
-times. A run directory the port writes (``params.pt`` and its own pickled
-loader) serves the same responses.
+match the JAX ``PredictService`` (both built with ``transfer_dtype=None``)
+to rtol 1e-4 plus 1e-5 times the field's largest magnitude (float32
+forwards in different summation orders), with identical sea cells,
+coordinates and times. A run directory the port writes (``params.pt`` and
+its own pickled loader) serves the same responses. The default service,
+int16 like the JAX one (and so ``serve``), matches the JAX int16 service to
+that tolerance plus one quantisation step of each map (its range / 65535):
+the two sides' float32 maps may round to neighbouring steps.
 """
 
 import json
@@ -59,10 +62,13 @@ def run(tmp_path_factory):
     port_dem = Field(dem.data, dem.dims, dem.coords, dem.name, dict(dem.attrs))
     jsvc = JPredictService(model_dir, dem, highres_factor=2, transfer_dtype=None)
     return {"model_dir": model_dir, "dem": port_dem, "times": times, "jsvc": jsvc,
-            "jresp": jsvc.predict(times)}
+            "jresp": jsvc.predict(times),
+            "jresp16": JPredictService(model_dir, dem, highres_factor=2).predict(times)}
 
 
-def assert_response_matches(got: dict, want: dict):
+def assert_response_matches(got: dict, want: dict, levels: int = 0):
+    """``levels``: the responses were quantised to that many steps per map;
+    one step more is let through."""
     assert set(got) == set(want)
     for key in ("variable", "times", "latitude", "longitude", "missing_value"):
         assert got[key] == want[key], key
@@ -72,8 +78,12 @@ def assert_response_matches(got: dict, want: dict):
         sea = b == want["missing_value"]
         np.testing.assert_array_equal(a == got["missing_value"], sea)
         assert (~sea).any()
-        np.testing.assert_allclose(a[~sea], b[~sea], rtol=1e-4,
-                                   atol=1e-5 * float(np.abs(b[~sea]).max()))
+        tol = 1e-4 * np.abs(b) + 1e-5 * float(np.abs(b[~sea]).max())
+        if levels:
+            land = np.where(sea, np.nan, b)
+            tol = tol + (np.nanmax(land, axis=(1, 2), keepdims=True)
+                         - np.nanmin(land, axis=(1, 2), keepdims=True)) / levels
+        assert (np.abs(a - b)[~sea] <= tol[~sea]).all(), key
 
 
 def test_load_run_reads_the_jax_directory(run):
@@ -101,7 +111,8 @@ def test_predict_matches_jax_service(run):
 
 
 def test_service_applies_shipped_recalibration(run):
-    svc = PredictService(run["model_dir"], run["dem"], highres_factor=2, device="cpu")
+    svc = PredictService(run["model_dir"], run["dem"], highres_factor=2, transfer_dtype=None,
+                         device="cpu")
     assert svc.predictor.std_scale == pytest.approx(float(svc.run["std_scale"]))
     assert svc.run["std_scale"] != 1.0
     # without the factor the spread differs by it (cnp: std scales linearly)
@@ -131,7 +142,8 @@ def test_port_written_run_serves_the_same(run, tmp_path):
     meta = {k: v for k, v in src["metadata"].items() if k != "step"}
     save_checkpoint(str(port_dir), src["params"], metadata=meta,
                     flax_upsample=src["model"].cfg.upsample)
-    svc = PredictService(str(port_dir), run["dem"], highres_factor=2, device="cpu")
+    svc = PredictService(str(port_dir), run["dem"], highres_factor=2, transfer_dtype=None,
+                         device="cpu")
     assert_response_matches(svc.predict(run["times"]), run["jresp"])
     (port_dir / "params.pt").unlink()  # now from params.msgpack
     again = load_run(str(port_dir), device="cpu")
@@ -168,9 +180,13 @@ def test_device_defaults_to_the_card(run, monkeypatch):
 
 
 def test_int16_transfer_is_not_ported(run):
-    with pytest.raises(NotImplementedError, match="transfer_dtype"):
-        PredictService(run["model_dir"], run["dem"], highres_factor=2, transfer_dtype="int16",
-                       device="cpu")
+    """int16, once not ported, is the default now as in the JAX service:
+    its responses match the JAX int16 service's."""
+    svc = PredictService(run["model_dir"], run["dem"], highres_factor=2, device="cpu")
+    p = svc.predictor
+    assert (p.transfer_dtype, p.batch_chunk, p.download_threads) == ("int16", 24, 8)
+    assert_response_matches(svc.predict(run["times"]), run["jresp16"], levels=65535)
+    assert_response_matches(svc.predict(run["times"]), run["jresp"], levels=65535)
 
 
 @pytest.fixture(scope="module")
@@ -200,7 +216,7 @@ def test_http_predict_matches_jax(http, run):
     with _post(f"{http}/predict", json.dumps({"times": run["times"]}).encode()) as r:
         assert r.status == 200 and r.headers["Content-Type"] == "application/json"
         body = json.loads(r.read())
-    assert_response_matches(body, run["jresp"])
+    assert_response_matches(body, run["jresp16"], levels=65535)
 
 
 @pytest.mark.parametrize("body", [b'{"nope": 1}', b'{"times": []}', b'{"times": "2000-01-01"}',
