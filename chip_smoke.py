@@ -63,13 +63,33 @@ Phases (one line each; the first failure exits non-zero):
              on the CPU (plain versions): ``predict_grid``,
              ``predict_points``, and the AR chain with the head's sample
              replaced by its mean over one visit order.
-9. train-kernels - B1's length-scale backward against its plain version in
+9. al      - greedy station placement (``GreedyAlgorithm``) with the
+             flagship ConvNP at ``perf/al_bench.py``'s shape: one task, 512
+             targets with one aux channel, 64 candidates with aux, 4
+             placements. ``exhaustive`` then ``fast``, each timed with the
+             port's ``benchmark_fn`` (1 warm-up, 3 reps) and once more with
+             CUDA events; peak memory, B1/B2 launches (exhaustive 2 per
+             placement, fast 1, B2 none), no plain SetConv on the card, the
+             host synchronisations of a run and where they come from (none
+             inside the rounds); placements distinct and drawn from the
+             candidates, finite histories, the final task's ``Stddev`` not
+             above the initial one's + 1e-6; B1 against its plain version at
+             the exhaustive shape (64 x (512 + 4 + 1), 4 masked slots); one
+             exhaustive run under ``profile_trace``: the five device ops
+             that took most time, and the device's busy share.
+10. al-reference - a small ConvNP's ``GreedyAlgorithm.run`` in both modes
+             on the GPU (kernels) against the CPU (plain versions): each
+             round's candidate scores within rtol 1e-4, each round decisive
+             (the CPU's best ahead of its runner-up by more than twice the
+             largest GPU-CPU score difference), the same placements,
+             histories and final context set within rtol 1e-4.
+11. train-kernels - B1's length-scale backward against its plain version in
              float64, at the training shape (8x512 stations onto 608x608)
              and the serving shape (24x512), for a random upstream gradient,
              a density-only one and one positive on every channel; twice
              each (the result must not change from run to run). CUDA-event
              times of the kernel and of the plain f32 autograd backward.
-10. train   - the flagship ConvNP's train step at ``perf/train_bench.py``'s
+12. train   - the flagship ConvNP's train step at ``perf/train_bench.py``'s
              shape (batch 8: the serving contexts plus 512 station targets
              with one aux channel; lr 5e-5): one warm-up step and 5 timed
              steps (CUDA events and wall, their median tasks/s), then one
@@ -78,7 +98,7 @@ Phases (one line each; the first failure exits non-zero):
              and uploads included); losses, peak memory; checks finite
              losses, moved parameters, and B1's forward and backward
              launched on every step.
-11. pipeline - a run trained from data and served, as a modeller does:
+13. pipeline - a run trained from data and served, as a modeller does:
              the port's ``synthetic_bundle`` (temperature, 40 daily times, a
              139x130 base, a 2780x2600 DEM, 512 stations) ->
              ``PreprocessForDownscaling`` (highres x10, lowres x50, time of
@@ -99,7 +119,7 @@ Phases (one line each; the first failure exits non-zero):
              capacity, ragged station sets in masked slots) with the
              trained model, and on the last request's 24-time task; B1's
              l-gradient on the same batch in float64 as in [train-kernels].
-12. validate - the pipeline's run directory validated, before it is
+14. validate - the pipeline's run directory validated, before it is
              removed: ``Validate(run_dir)`` and, on the 8 validation times
              with station ids 0-7 held out, ``calculate_loss``,
              ``elevation_band_errors`` (errors passed, DEM elevations),
@@ -121,29 +141,38 @@ Phases (one line each; the first failure exits non-zero):
              ``upload_dtype`` (float32, float16): wall and CUDA-event time,
              ``last_timings``, the largest error against float32 within
              the mode's bound, 8 threads bitwise equal to 1.
-13. validate-reference - ``Validate`` on a small ConvNP of each head (gnp,
+15. validate-reference - ``Validate`` on a small ConvNP of each head (gnp,
              cnp, bernoulli-gamma, cnp-spikes-beta) on the GPU and on the
              CPU from the same weights and run dict: ``calculate_loss``,
              ``calibration_stats``, ``pit_stats``, ``crps`` (the mixed
              heads on the same fixed samples, and once from the card's own
              generator), and ``wet_dry_skill`` for bernoulli-gamma.
-14. train-reference - one train step of a small ConvNP on the GPU (kernels)
+16. train-reference - one train step of a small ConvNP on the GPU (kernels)
              and on the CPU (plain versions) from the same weights and
              batch: the loss, every parameter's gradient, and the update
              where Adam's first step is well conditioned.
+17. cli-train - the YAML training CLI as a user runs it: a YAML
+             (``synthetic: true``, the flagship's U-Net, gnp, density 500,
+             2 epochs at batch 8) -> ``cli.train_downscaling.main`` into a
+             temporary ``save_model`` root set with ``set_data_paths`` ->
+             ``load_run`` -> one ``PredictService`` request. Each stage's
+             wall time, losses, launches (B1, its l-gradient, B2), no plain
+             SetConv on the card, the run's files and a bitwise response.
 
 The first lines also say whether scipy (with its version), pandas, PyYAML
 and matplotlib import. The last two lines are a JSON object of per-kernel
 results (its launch counts are those of the main-path phases: serve,
-service, sample-serve, ar, train, pipeline and validate) and the
+service, sample-serve, ar, al, train, pipeline, validate and cli-train) and the
 ``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy,
 scipy and the standard library.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import importlib
 import json
 import pickle
@@ -202,6 +231,15 @@ AR_BLOCKS = 8
 AR_REPS = 3  # timed ar_sample calls, after one warm-up
 AR_GRID_TASKS = 4
 AR_SUBSAMPLE = 4
+AL_CANDIDATES = 64  # perf/al_bench.py's shape
+AL_PLACEMENTS = 4
+AL_REPS = 3  # timed runs of each mode, after one warm-up
+# [al-reference]'s small model: 6 context stations, so that one placement
+# moves the acquisition by more than the two devices' rounding
+AL_REF_STATIONS, AL_REF_CANDIDATES, AL_REF_PLACEMENTS, AL_REF_SEED = 6, 8, 3, 11
+AL_STDDEV_SLACK = 1e-6  # tests/test_ar_and_al.py's check
+CLI_EPOCHS = 2
+CLI_REQUEST_TIMES = 8
 SERVICE_TIMES = 48  # hourly times in the service's data
 SERVICE_REQUESTS = 3  # timed, after one warm-up
 DEM_FACTOR = 10  # the 2780x2600 DEM coarsens to the 278x260 grid
@@ -552,6 +590,10 @@ class Timed:
     def __getattr__(self, name):
         return getattr(self.fn, name)
 
+    def __get__(self, obj, objtype=None):
+        """As a class attribute, a method: bound to the instance."""
+        return self if obj is None else functools.partial(self, obj)
+
 
 def service_phase(dev, cfg, dp, target_var, setconv_cuda, device=None) -> dict:
     """Phase 5: a run directory served by ``PredictService`` and ``serve``;
@@ -733,7 +775,7 @@ def stack_timing(aux, reps: int = TIMING_REPS) -> None:
         raise AssertionError("_stack_channels differs from np.stack")
 
 
-def encode_check(model, task, phase: str = "service") -> float:
+def encode_check(model, task, phase: str = "service", what: str = "the loader's shape") -> float:
     """B1 against its plain version on each station set of a task a loader
     built (its point capacity, per-time padding and missing rows), with the
     model's own length scales; returns the largest error. These launches
@@ -750,13 +792,13 @@ def encode_check(model, task, phase: str = "service") -> float:
             got = setconv_cuda.encode_offgrid(*args)
             torch.cuda.synchronize()
             cmp = compare(got, setconv.setconv_encode_offgrid(*args), RTOL, ATOL_FRAC)
-            say(phase, f"encode_offgrid at the loader's shape {tuple(p.x.shape)} "
+            say(phase, f"encode_offgrid at {what} {tuple(p.x.shape)} "
                 f"({int(p.mask.sum())} of {p.mask.numel()} slots filled) -> {tuple(got.shape)}: "
                 f"max_abs_err {cmp['max_abs_err']:.3e} max_rel_err {cmp['max_rel_err']:.3e} "
                 f"(rtol {RTOL}, atol {cmp['atol']:.3e})")
             if not cmp["ok"]:
-                raise AssertionError(f"encode_offgrid disagrees with its plain version at the "
-                                     f"{phase} loader's shape")
+                raise AssertionError(f"encode_offgrid disagrees with its plain version at "
+                                     f"{what} ({phase})")
             worst = max(worst, cmp["max_abs_err"])
     return worst
 
@@ -935,6 +977,263 @@ def ar_phase(dev, model, dp, dem, aux_field, target_var, setconv_cuda) -> dict:
     return counts
 
 
+def record_rounds(alg) -> list:
+    """Wraps a ``GreedyAlgorithm`` so that each round's candidate scores
+    are kept (host copies): the exhaustive acquisitions, or in fast mode
+    the predictive std at the candidates. Returns the list they go to."""
+    rounds = []
+    if alg.mode == "fast":
+        predict = alg._predict
+
+        def keep_std(task):
+            mean, std = predict(task)
+            rounds.append(std[0, :, 0].cpu())
+            return mean, std
+        alg._predict = keep_std
+    else:
+        scores = alg._exhaustive_scores_dev
+
+        def keep_scores(*args):
+            sc = scores(*args)
+            rounds.append(sc.cpu())
+            return sc
+        alg._exhaustive_scores_dev = keep_scores
+    return rounds
+
+
+def round_margins(rounds, placed, mode: str) -> list[tuple[float, float, float]]:
+    """Per round of a greedy run: (best score, runner-up, largest |score|)
+    over the candidates still in the pool; fails if the round's placement
+    (index ``placed[t]``) is not the best."""
+    out = []
+    for t, sc in enumerate(rounds):
+        sc = sc.double().numpy()
+        free = np.setdiff1d(np.arange(len(sc)), placed[:t])
+        order = free[np.argsort(-sc[free] if mode == "fast" else sc[free], kind="stable")]
+        if order[0] != placed[t]:
+            raise AssertionError(f"round {t} placed candidate {placed[t]}, "
+                                 f"not the best {order[0]}")
+        out.append((float(sc[order[0]]), float(sc[order[1]]), float(np.abs(sc).max())))
+    return out
+
+
+def placement_indices(cands: np.ndarray, placements: np.ndarray) -> list[int]:
+    """The candidate row of each placement (-1 where none equals it)."""
+    return [int(np.flatnonzero((cands == p).all(1))[0]) if (cands == p).all(1).any() else -1
+            for p in placements]
+
+
+def host_syncs(fn) -> tuple[object, list[tuple[str, bool]]]:
+    """``fn()``'s result and the synchronising CUDA calls it made (torch's
+    sync debug mode): for each, the innermost line of the port on the stack
+    and whether it ran inside a greedy chain (``_run_chain``)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    found = []
+
+    def show(message, *args, **kwargs):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        port = [f for f in stack if "deepsensornz_tpu_torch" in f.filename]
+        site = (f"{Path(port[-1].filename).name}:{port[-1].lineno} {port[-1].line}" if port
+                else "outside the port")
+        found.append((site, any(f.name == "_run_chain" for f in stack)))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, found
+
+
+def device_ops(trace: Path, top: int = 5) -> tuple[list, float, float]:
+    """From a ``torch.profiler`` Chrome trace: the ``top`` device ops by
+    total time as (name, ms, calls), the device's busy time and the span
+    from its first op's start to its last op's end (ms)."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    ops = [e for e in events
+           if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not ops:
+        return [], 0.0, 0.0
+    by_name: dict = {}
+    for e in ops:
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + float(e["dur"]) / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    busy = sum(float(e["dur"]) for e in ops) / 1e3
+    span = (max(float(e["ts"]) + float(e["dur"]) for e in ops)
+            - min(float(e["ts"]) for e in ops)) / 1e3
+    return [(name, ms, n) for name, (ms, n) in ranked], busy, span
+
+
+def al_phase(dev, model, setconv, setconv_cuda) -> tuple[dict, float]:
+    """Phase 9: greedy placement with the flagship at perf/al_bench.py's
+    shape, exhaustive then fast; returns the launch counts of the timed runs
+    and B1's largest error against its plain version at the exhaustive
+    shape."""
+    import torch
+
+    from deepsensornz_tpu_torch.al import GreedyAlgorithm, Stddev
+    from deepsensornz_tpu_torch.infer.ar import _extend_point_context
+    from deepsensornz_tpu_torch.perf.harness import benchmark_fn, profile_trace
+
+    task = train_task(50, 1, model.cfg.internal_density).to(dev)  # 512 targets, one aux channel
+    rng = np.random.default_rng(3)
+    cands = rng.random((AL_CANDIDATES, 2)).astype(np.float32)
+    cand_aux = rng.normal(size=(AL_CANDIDATES, 1)).astype(np.float32)
+    acq = Stddev()
+    with torch.inference_mode():
+        before = float(acq(*GreedyAlgorithm(model)._predict(task), task.yt_mask)[0])
+    counts = dict.fromkeys(setconv_cuda.launch_counts(), 0)
+    for mode, b1_per_round in (("exhaustive", 2), ("fast", 1)):
+        alg = GreedyAlgorithm(model, mode=mode)
+
+        def run(n=AL_PLACEMENTS):
+            return alg.run(task, cands, n_placements=n, candidate_aux=cand_aux)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        setconv_cuda.reset_launch_counts()
+        with plain_calls_on_card(setconv) as plain:
+            bench = benchmark_fn(run, warmup=1, reps=AL_REPS)
+            out, ms, wall = timed(run)
+        launches = setconv_cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_runs = 1 + AL_REPS + 1
+        hist = np.asarray(out["acquisition_history"])
+        placed = placement_indices(cands, out["placements"])
+        final = out["final_task"]
+        with torch.inference_mode():
+            after = float(acq(*alg._predict(final), final.yt_mask)[0])
+        syncs = host_syncs(run)[1]
+        in_chain = [site for site, inside in syncs if inside]
+        say("al", f"{mode}: run({AL_CANDIDATES} candidates, {AL_PLACEMENTS} placements) "
+            f"benchmark_fn p50 {bench['p50_s']:.4f} s, min {bench['min_s']:.4f} s over "
+            f"{bench['reps']} reps ({bench['p50_s'] / AL_PLACEMENTS:.4f} s per placement); one "
+            f"more run {ms:.1f} ms (CUDA events), {wall:.4f} s wall; peak memory "
+            f"{peak / 2**30:.2f} GiB; launches in {n_runs} runs {launches}; plain versions "
+            f"called on the card {dict(plain)}; host synchronisations in one run "
+            f"{len(syncs)}, {len(in_chain)} inside the rounds: "
+            + "; ".join(f"{site} x{n}" for site, n in
+                        collections.Counter(site for site, _ in syncs).items()))
+        say("al", f"{mode}: placements {out['placements'].tolist()} (candidates {placed}); "
+            f"history {hist.tolist()}; Stddev initial {before:.7f}, final {after:.7f}")
+        if -1 in placed or len(set(placed)) != AL_PLACEMENTS:
+            raise AssertionError(f"{mode}: placements not distinct candidates: {placed}")
+        if not np.isfinite(hist).all():
+            raise AssertionError(f"{mode}: non-finite acquisition history {hist}")
+        if after > before + AL_STDDEV_SLACK:
+            raise AssertionError(f"{mode}: the placements raised the Stddev acquisition "
+                                 f"({before} -> {after})")
+        if (launches["encode_offgrid"] != n_runs * AL_PLACEMENTS * b1_per_round
+                or launches["decode_grid"] or launches["encode_offgrid_grad"]):
+            raise AssertionError(f"{mode}: launches {launches} in {n_runs} runs")
+        if any(plain.values()):
+            raise AssertionError(f"{mode}: a plain SetConv ran on the card")
+        if in_chain:
+            raise AssertionError(f"{mode}: the rounds synchronised with the host: {in_chain}")
+        for k in counts:
+            counts[k] += launches[k]
+
+    # B1 against its plain version at the exhaustive forward's shape: the
+    # station set with its masked placement slots and one candidate per task
+    ext = dataclasses.replace(task, points=(_extend_point_context(task.points[0],
+                                                                  AL_PLACEMENTS),))
+    feed = torch.from_numpy(rng.normal(size=(AL_CANDIDATES, 1)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        tiled = GreedyAlgorithm.hypothetical_tasks(ext, torch.from_numpy(cands).to(dev), feed, 0)
+        err = encode_check(model, tiled, "al", "the exhaustive forward's shape")
+        p = tiled.points[0]
+        args = (tiled.x1g, tiled.x2g, p.x, p.y, p.mask, model.lengthscale("ls_points_0"))
+        ms = cuda_ms(lambda: setconv_cuda.encode_offgrid(*args))
+        plain_ms = cuda_ms(lambda: setconv.setconv_encode_offgrid(*args))
+        work = encode_work(setconv, *args)
+    bnd = card_bound(*work)
+    say("al", f"encode_offgrid at {tuple(p.x.shape)}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+        f"(CUDA events, median of {TIMING_REPS}); needed {work[0] / 1e9:.3f} GFLOP, "
+        f"{work[1] / 1e6:.1f} MB: bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+    del tiled, args, p, ext
+
+    # one exhaustive run under the profiler
+    alg = GreedyAlgorithm(model, mode="exhaustive")
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp) as log_dir:
+            alg.run(task, cands, n_placements=AL_PLACEMENTS, candidate_aux=cand_aux)
+            torch.cuda.synchronize()
+        ops, busy, span = device_ops(Path(log_dir) / "trace.json")
+    if ops:
+        say("al", f"profiled exhaustive run: device busy {busy:.1f} ms of a {span:.1f} ms span "
+            f"({100 * busy / span:.1f} %); top device ops: " + "; ".join(
+                f"{name[:70]} {t:.1f} ms x{n}" for name, t, n in ops))
+    else:
+        say("al", "profiled exhaustive run: the trace holds no device op (not measured)")
+    say("al", f"launches {counts}")
+    return counts, err
+
+
+def al_reference(dev) -> None:
+    """Phase 10: a small ConvNP's greedy placement on the GPU (kernels)
+    against the CPU (plain versions), in both modes: each round's
+    candidate scores within the reference tolerance, each round decisive
+    (the CPU's best ahead of its runner-up by more than twice the largest
+    GPU-CPU score difference of the round), the same placements, and the
+    histories and final context set within the tolerance."""
+    import torch
+
+    from deepsensornz_tpu_torch.al import GreedyAlgorithm
+    from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+
+    small = ConvNPConfig(unet_channels=(8, 8), likelihood="gnp", internal_density=40,
+                         rank=4, decoder_channels=8, mlp_hidden=8, compute_dtype="float32")
+    task = train_task(8, 1, small.internal_density, base_hw=(12, 11), aux_hw=(30, 28),
+                      n_stations=AL_REF_STATIONS, n_targets=20)
+    rng = np.random.default_rng(AL_REF_SEED)
+    cands = rng.random((AL_REF_CANDIDATES, 2)).astype(np.float32)
+    cand_aux = rng.normal(size=(AL_REF_CANDIDATES, 1)).astype(np.float32)
+    for mode in ("exhaustive", "fast"):
+        got, rounds = {}, {}
+        for role, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
+            alg = GreedyAlgorithm(build_model(small, task, seed=3, device=d), mode=mode)
+            rounds[role] = record_rounds(alg)
+            got[role] = alg.run(task, cands, n_placements=AL_REF_PLACEMENTS,
+                                candidate_aux=cand_aux)
+        g, c = got["gpu"], got["cpu"]
+        placed = placement_indices(cands, c["placements"])
+        scores = [compare(gs, cs_, REF_RTOL, REF_ATOL_FRAC)
+                  for gs, cs_ in zip(rounds["gpu"], rounds["cpu"])]
+        score_errs = [sc["max_abs_err"] for sc in scores]
+        decisive = [abs(best - second) / max(2 * e, 1e-30)
+                    for (best, second, _), e in zip(round_margins(rounds["cpu"], placed, mode),
+                                                    score_errs)]
+        same = np.array_equal(g["placements"], c["placements"])
+        hist = compare(torch.tensor(g["acquisition_history"]),
+                       torch.tensor(c["acquisition_history"]), REF_RTOL, REF_ATOL_FRAC)
+        ctx = {k: compare(getattr(g["final_task"].points[0], k).cpu(),
+                          getattr(c["final_task"].points[0], k), REF_RTOL, REF_ATOL_FRAC)
+               for k in ("x", "y", "mask")}
+        say("al-reference", f"{mode}: placements GPU {placement_indices(cands, g['placements'])} "
+            f"CPU {placed}, same {same}; per-round candidate scores GPU vs CPU max_abs_err "
+            f"{', '.join(f'{e:.3e}' for e in score_errs)}; CPU margin over "
+            f"twice that {', '.join(f'{r:.3g}' for r in decisive)}; history max_abs_err "
+            f"{hist['max_abs_err']:.3e}; final context max_abs_err "
+            + ", ".join(f"{k} {v['max_abs_err']:.3e}" for k, v in ctx.items())
+            + f" (rtol {REF_RTOL}, atol {REF_ATOL_FRAC} x max)")
+        if not all(sc["ok"] for sc in scores):
+            raise AssertionError(f"{mode}: candidate scores on the GPU disagree with the CPU")
+        if min(decisive) <= 1.0:
+            raise AssertionError(f"{mode}: a round is a near-tie; the comparison cannot decide")
+        if not same or not hist["ok"] or not all(v["ok"] for v in ctx.values()):
+            raise AssertionError(f"{mode}: greedy placement on the GPU disagrees with the CPU")
+
+
 def kernel_checks(dev, model, dp, dem, task0) -> dict:
     """Phase 3: each kernel against its plain version at the main path's
     shapes (and B1 at the AR feedback shapes); returns per-kernel results
@@ -1079,7 +1378,7 @@ def serve_reference(dev, dp, target_var) -> None:
 
 
 def train_kernels(dev, model, setconv, setconv_cuda) -> dict:
-    """Phase 9: B1's backward against its plain version in float64 at the
+    """Phase 11: B1's backward against its plain version in float64 at the
     training and serving shapes; returns the training shape's numbers."""
     import torch
 
@@ -1107,7 +1406,7 @@ def train_kernels(dev, model, setconv, setconv_cuda) -> dict:
 
 
 def train_flagship(dev, model, cfg, setconv_cuda) -> dict:
-    """Phase 10: the flagship train step at perf/train_bench.py's shape;
+    """Phase 12: the flagship train step at perf/train_bench.py's shape;
     returns the launch counts of the run."""
     import torch
 
@@ -1204,8 +1503,8 @@ def plain_calls_on_card(setconv):
 
 
 def pipeline_phase(dev, cfg, setconv, setconv_cuda) -> tuple[dict, dict, dict]:
-    """Phase 11: synthetic data -> preprocessing -> ``Train`` at ``cfg``'s
-    width -> a run directory -> ``PredictService``, then phase 12
+    """Phase 13: synthetic data -> preprocessing -> ``Train`` at ``cfg``'s
+    width -> a run directory -> ``PredictService``, then phase 14
     (:func:`validate_phase`) on the same run directory; returns the launch
     counts of training and serving together, the largest error of each
     kernel against its plain version on the pipeline's and validation's own
@@ -1389,7 +1688,7 @@ def decode_check(model, task, dp, grid, phase: str) -> float:
 
 
 def validate_phase(dev, run_dir: Path, base, dem, stations, setconv, setconv_cuda):
-    """Phase 12: the pipeline's run directory validated on the card:
+    """Phase 14: the pipeline's run directory validated on the card:
     ``Validate``'s metrics on the validation times with a holdout,
     ``ValidateERA`` on 24 times from the raw base and stations, then the
     transfer modes on a 72-time request in chunks of 24. Returns the launch
@@ -1592,7 +1891,7 @@ def validate_phase(dev, run_dir: Path, base, dem, stations, setconv, setconv_cud
 
 
 def validate_reference(dev, setconv) -> None:
-    """Phase 13: ``Validate`` on a small ConvNP of each head, on the GPU
+    """Phase 15: ``Validate`` on a small ConvNP of each head, on the GPU
     (kernels) and on the CPU (plain versions) from the same weights and run
     dict: ``calculate_loss``, ``calibration_stats``, ``pit_stats``,
     ``crps`` (the mixed heads on the same fixed samples, then once from the
@@ -1686,7 +1985,7 @@ def validate_reference(dev, setconv) -> None:
 
 
 def train_reference(dev, setconv_cuda) -> None:
-    """Phase 14: a small train step on the GPU (kernels) against the CPU
+    """Phase 16: a small train step on the GPU (kernels) against the CPU
     (plain versions) from the same weights and batch."""
     import torch
 
@@ -1740,6 +2039,126 @@ def train_reference(dev, setconv_cuda) -> None:
         raise AssertionError(f"small-model train step on the GPU disagrees with the CPU: {bad}")
     if counts["encode_offgrid_grad"] == 0:
         raise AssertionError("the GPU train step did not launch encode_offgrid_grad")
+
+
+def cli_train_phase(dev, cfg, setconv, setconv_cuda) -> dict:
+    """Phase 17: a YAML through the training CLI at ``cfg``'s width, the
+    run directory it writes loaded and served; returns the launch counts of
+    the training and the request."""
+    import torch
+    import yaml
+
+    from deepsensornz_tpu_torch import paths
+    from deepsensornz_tpu_torch.cli import train_downscaling as cli
+    from deepsensornz_tpu_torch.infer.server import PredictService
+    from deepsensornz_tpu_torch.pipeline.preprocess import PreprocessForDownscaling
+    from deepsensornz_tpu_torch.pipeline.train import Train
+    from deepsensornz_tpu_torch.pipeline.validate import load_run
+
+    args = {"variable": "temperature", "model_name": "cli_smoke", "synthetic": True,
+            "n_epochs": CLI_EPOCHS, "batch_size": N_TRAIN_TASKS, "lr": TRAIN_LR,
+            "unet_channels": list(cfg.unet_channels), "likelihood": cfg.likelihood,
+            "internal_density": int(cfg.internal_density), "highres_coarsen_factor": 2,
+            "lowres_coarsen_factor": 4, "include_time_of_year": True}
+    targets = {"load_synthetic_data": (cli, "load_synthetic_data"),
+               "preprocess": (PreprocessForDownscaling, "run_processing_sequence"),
+               "setup_task_loader": (Train, "setup_task_loader"),
+               "initialise_model": (Train, "initialise_model"),
+               "train_model": (Train, "train_model")}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        arg_path = Path(tmp) / "args.yaml"
+        arg_path.write_text(yaml.safe_dump(args))
+        paths.set_data_paths({"save_model": {"fpath": str(Path(tmp) / "models")}})
+        try:
+            with stage_timers(targets) as timers, plain_calls_on_card(setconv) as plain:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                setconv_cuda.reset_launch_counts()
+                t0 = time.perf_counter()
+                run_dir = Path(cli.main(["-arg_path", str(arg_path)]))
+                torch.cuda.synchronize()
+                main_s = time.perf_counter() - t0
+                train_counts = setconv_cuda.launch_counts()
+                plain_train = dict(plain)
+        finally:
+            paths._DATA_PATHS = None
+        peak = torch.cuda.max_memory_allocated(dev)
+        wall = {k: sum(c["wall_s"] for c in t.calls) for k, t in timers.items()}
+        out = timers["train_model"].calls[0]["out"]
+        base, dem, _ = timers["load_synthetic_data"].calls[0]["out"]
+        files = sorted(p.name for p in run_dir.iterdir())
+        say("cli-train", f"main {main_s:.3f} s wall = synthetic data "
+            f"{wall['load_synthetic_data']:.3f} + preprocessing {wall['preprocess']:.3f} + "
+            f"loader set-up {wall['setup_task_loader']:.3f} + model {wall['initialise_model']:.3f}"
+            f" + train_model {wall['train_model']:.3f} + rest "
+            f"{main_s - sum(wall.values()):.3f} s; peak memory {peak / 2**30:.2f} GiB; run "
+            f"directory {run_dir.relative_to(tmp)}: {files}")
+        say("cli-train", f"train losses {out['train_losses']}, validation losses "
+            f"{out['val_losses']}, std_scale {out.get('std_scale')}; launches {train_counts}; "
+            f"plain versions called on the card {plain_train}")
+        want_files = ["args.yaml", "data_processor.json", "metadata.json", "opt_state.pt",
+                      "params.msgpack", "params.pt", "task_loader.pkl"]
+        if files != want_files:
+            raise AssertionError(f"the CLI wrote {files}, not {want_files}")
+        losses = out["train_losses"] + out["val_losses"]
+        if len(out["train_losses"]) != CLI_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f"CLI training losses {losses}")
+        lo, hi = STD_SCALE_RANGE
+        if not lo <= out.get("std_scale", np.nan) <= hi:
+            raise AssertionError(f"std_scale {out.get('std_scale')} outside [{lo}, {hi}]")
+        if train_counts["encode_offgrid"] == 0 or train_counts["encode_offgrid_grad"] == 0:
+            raise AssertionError(f"CLI training launched {train_counts}")
+
+        t0 = time.perf_counter()
+        run = load_run(str(run_dir))
+        load_s = time.perf_counter() - t0
+        tl = run["task_loader"]
+        grid = f"{len(tl.x1g)}x{len(tl.x2g)}"
+        model_dev = next(run["model"].parameters()).device
+        if model_dev != dev or tl.internal_density != cfg.internal_density:
+            raise AssertionError(f"load_run gave a model on {model_dev} and a loader at density "
+                                 f"{tl.internal_density}")
+        del run, tl
+        t0 = time.perf_counter()
+        svc = PredictService(str(run_dir), dem, highres_factor=2)
+        svc_s = time.perf_counter() - t0
+        loader = svc.run["task_loader"] = Timed(svc.run["task_loader"])
+        forward = svc.predictor.predict_grid = Timed(svc.predictor.predict_grid,
+                                                     cuda_events=True)
+        times = base.coords["time"][:CLI_REQUEST_TIMES]
+        req = [str(t) for t in times]
+        setconv_cuda.reset_launch_counts()
+        with plain_calls_on_card(setconv) as plain:
+            resp, _, total_s = timed(lambda: svc.predict(req))
+            serve_counts = setconv_cuda.launch_counts()
+        direct = forward.fn(loader.calls[-1]["out"], svc.pred_grid,
+                            aux_at_targets=loader.aux_at_targets, times=np.asarray(times))
+        sea = np.isnan(svc.pred_grid.data)
+        same = {}
+        for key in ("mean", "std"):
+            got = np.asarray(resp[key], np.float32)
+            want = np.nan_to_num(direct[key].data, nan=-9999.0)
+            same[key] = (got.shape == (len(req),) + svc.pred_grid.shape
+                         and got.tobytes() == want.tobytes()
+                         and bool(((got == -9999.0) == sea).all()))
+        fwd = forward.calls[-1]
+        say("cli-train", f"load_run {load_s:.3f} s (grid {grid}); PredictService {svc_s:.3f} s; "
+            f"request ({len(req)} times, grid {svc.pred_grid.shape}) {total_s:.3f} s wall = "
+            f"loader "
+            f"{loader.calls[-1]['wall_s']:.4f} + predict_grid {fwd['wall_s']:.4f} s "
+            f"({fwd['ms']:.1f} ms CUDA events) + response; launches {serve_counts}; plain "
+            f"versions called on the card {dict(plain)}; bitwise equal to a direct "
+            f"predict_grid with sea -9999: {same}; the phase "
+            f"{time.perf_counter() - t_phase:.1f} s wall")
+        if serve_counts["encode_offgrid"] != 1 or serve_counts["decode_grid"] != 1:
+            raise AssertionError(f"the CLI run's request launched {serve_counts}")
+        if not all(same.values()):
+            raise AssertionError("the CLI run's response differs from predict_grid")
+        if any(plain_train.values()) or any(plain.values()):
+            raise AssertionError("a plain SetConv ran on the card in the CLI run")
+        del svc
+    return {k: train_counts[k] + serve_counts[k] for k in train_counts}
 
 
 def main() -> int:
@@ -1829,6 +2248,12 @@ def main() -> int:
     sample_counts = sample_serve(dev, model, dp, dem, aux_field, target_var, setconv_cuda)
     ar_counts = ar_phase(dev, model, dp, dem, aux_field, target_var, setconv_cuda)
     serve_reference(dev, dp, target_var)
+    al_counts, al_err = al_phase(dev, model, setconv, setconv_cuda)
+    results["encode_offgrid"]["max_abs_err"] = max(results["encode_offgrid"]["max_abs_err"],
+                                                   al_err)
+    t0 = time.perf_counter()
+    al_reference(dev)
+    say("al-reference", f"{time.perf_counter() - t0:.1f} s wall")
 
     results["encode_offgrid_grad"] = train_kernels(dev, model, setconv, setconv_cuda)
     train_counts = train_flagship(dev, model, cfg, setconv_cuda)
@@ -1840,10 +2265,11 @@ def main() -> int:
     validate_reference(dev, setconv)
     say("validate-reference", f"{time.perf_counter() - t0:.1f} s wall")
     train_reference(dev, setconv_cuda)
+    cli_counts = cli_train_phase(dev, cfg, setconv, setconv_cuda)
 
     phases = {"serve": serve_counts, "service": service_counts, "sample-serve": sample_counts,
-              "ar": ar_counts, "train": train_counts, "pipeline": pipeline_counts,
-              "validate": validate_counts}
+              "ar": ar_counts, "al": al_counts, "train": train_counts,
+              "pipeline": pipeline_counts, "validate": validate_counts, "cli-train": cli_counts}
     launches = {name: sum(c[name] for c in phases.values()) for name in KERNELS}
     say("launches", "; ".join(f"{k} {v}" for k, v in phases.items()))
     say("total", f"{time.perf_counter() - t_start:.1f} s wall, the kernels' build included")

@@ -3,14 +3,15 @@
 Counterpart of ``deepsensornz_tpu/config.py``: the station registry, the
 canonical variable names and their per-source short names, the
 per-variable likelihoods and normalisation methods, the geographic
-extents, the ConvNP defaults and the default training recipe. The
-``profile`` tables and ``apply_profile`` are not carried over yet.
+extents, the ConvNP defaults, the default training recipe, and the
+``profile`` tables with ``apply_profile``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import warnings
 from typing import Optional
 
 _STATION_REGISTRY: Optional[dict] = None
@@ -118,6 +119,97 @@ TRAIN_DEFAULTS = {
     "plateau_patience": 5,
     "early_stop_patience": 10,
 }
+
+
+# Per-variable operating points of the training CLI's ``profile:`` key,
+# the JAX package's (``deepsensornz_tpu/config.py``, where the studies
+# behind them are described; they were measured with the JAX package and
+# are not re-measured for the port). 'tuned': density 350 with
+# per-variable smoothing; 'throughput': density 120 with the smoothing
+# scale pinned.
+TUNED_PROFILE = {
+    "temperature": {"internal_density": 350},
+    "precipitation": {"internal_density": 350, "init_lengthscale": 0.005},
+    "surface_pressure": {"internal_density": 350, "init_lengthscale": 0.005},
+    "10m_u_component_of_wind": {"internal_density": 350,
+                                "lengthscale_lr_mult": 30.0},
+    "10m_v_component_of_wind": {"internal_density": 350,
+                                "lengthscale_lr_mult": 30.0},
+    "humidity": {"internal_density": 350},
+}
+
+THROUGHPUT_PROFILE = {
+    "temperature": {"internal_density": 120, "init_lengthscale": 0.00714},
+    "precipitation": {"internal_density": 120, "init_lengthscale": 0.005},
+    "surface_pressure": {"internal_density": 120, "init_lengthscale": 0.005},
+    "10m_u_component_of_wind": {"internal_density": 120,
+                                "init_lengthscale": 0.00714,
+                                "lengthscale_lr_mult": 30.0},
+    "10m_v_component_of_wind": {"internal_density": 120,
+                                "init_lengthscale": 0.00714,
+                                "lengthscale_lr_mult": 30.0},
+    "humidity": {"internal_density": 120, "init_lengthscale": 0.00714},
+}
+
+PROFILES = {"tuned": TUNED_PROFILE, "throughput": THROUGHPUT_PROFILE}
+
+
+def lengthscale_values(ls) -> list:
+    """Numeric values of an ``init_lengthscale`` setting in any of its
+    accepted forms — scalar, mapping, or (name, value) pair iterable (the
+    same protocol ``utils.ARG_SCHEMA`` coerces from YAML and
+    ``ConvNPConfig.__post_init__`` normalises; keep the three in sync)."""
+    if isinstance(ls, (int, float)):
+        return [float(ls)]
+    pairs = ls.items() if hasattr(ls, "items") else ls
+    return [float(v) for _, v in pairs]
+
+
+def apply_profile(args: dict) -> dict:
+    """Resolve ``profile: tuned`` / ``profile: throughput`` into
+    per-variable measured-best settings.
+
+    Explicit per-run values always win; the profile only fills keys the
+    YAML left unset (or null). ``profile: parity`` / absent is a no-op.
+    """
+    profile = args.get("profile")
+    if profile in (None, "parity"):
+        return args
+    if profile not in PROFILES:
+        raise ValueError(
+            f"unknown profile {profile!r}; use "
+            f"{', '.join(map(repr, PROFILES))} or 'parity'")
+    filled = set()
+    for k, v in PROFILES[profile][args["variable"]].items():
+        if args.get(k) is None:
+            args[k] = v
+            filled.add(k)
+    # The profile's init_lengthscale values assume the profile's density.
+    # If the combination ends up invalid (a length-scale at/below the
+    # SetConv half-grid-spacing floor 0.5/density, which ConvNP refuses),
+    # back off whichever side the PROFILE filled — never an explicit
+    # per-run value (those always win). If BOTH are explicit, leave the
+    # combo alone so the model raises its own loud error.
+    ls, dens = args.get("init_lengthscale"), args.get("internal_density")
+    if ls is not None and dens:
+        vals = lengthscale_values(ls)
+        # an empty per-scale mapping means "all scales default" (ConvNP
+        # accepts it) — nothing to check against the floor
+        if vals and min(vals) <= 0.5 / float(dens):
+            if "init_lengthscale" in filled:
+                warnings.warn(
+                    f"profile {profile!r} init_lengthscale {ls} is "
+                    f"at/below the grid floor 0.5/{dens}; dropping it for "
+                    f"this run", stacklevel=2)
+                args["init_lengthscale"] = None
+            elif "internal_density" in filled:
+                warnings.warn(
+                    f"explicit init_lengthscale {ls} is at/below the grid "
+                    f"floor at the profile's internal_density {dens}; "
+                    f"dropping the profile's density for this run",
+                    stacklevel=2)
+                args["internal_density"] = None
+    return args
 
 
 def likelihood_for(variable: str) -> str:

@@ -387,3 +387,44 @@ def test_int16_predict_grid_on_the_card(cuda, small_runs, monkeypatch):
         err = np.abs(maps[1][key].data.astype(np.float64) - ref)
         assert np.array_equal(np.isnan(maps[1][key].data), ~land)
         assert (err[land] <= np.broadcast_to(bound, ref.shape)[land]).all(), key
+
+
+def test_encode_offgrid_at_the_al_exhaustive_shape(cuda):
+    """B1 as greedy placement's exhaustive forward feeds it: 64 hypothetical
+    tasks, each the 512 stations, 4 masked placement slots and one
+    candidate, onto the flagship's 608x608 grid."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from deepsensornz_tpu_torch.al import GreedyAlgorithm
+    from deepsensornz_tpu_torch.infer.ar import _extend_point_context
+
+    task = cs.train_task(0, 1, 500).to(cuda)
+    ext = dataclasses.replace(task, points=(_extend_point_context(task.points[0], 4),))
+    rng = np.random.default_rng(3)
+    cand = torch.from_numpy(rng.random((64, 2)).astype(np.float32)).to(cuda)
+    feed = torch.from_numpy(rng.normal(size=(64, 1)).astype(np.float32)).to(cuda)
+    tiled = GreedyAlgorithm.hypothetical_tasks(ext, cand, feed, 0)
+    p = tiled.points[0]
+    assert p.x.shape == (64, 517, 2) and float(p.mask.sum()) == 64 * 513
+    args = [tiled.x1g, tiled.x2g, p.x, p.y, p.mask, 0.004]
+    before = setconv_cuda.encode_offgrid.launches
+    with torch.no_grad():
+        got = setconv_cuda.encode_offgrid(*args)
+    assert setconv_cuda.encode_offgrid.launches == before + 1
+    _close(got, setconv.setconv_encode_offgrid(*args))
+
+
+def test_greedy_placement_on_the_card_as_on_the_cpu(cuda, monkeypatch):
+    """A small ConvNP's ``GreedyAlgorithm.run`` in both modes on the card
+    and on the CPU: the chip script's [al-reference] (each round's
+    candidate scores within rtol 1e-4, decisive, the same placements,
+    histories and final context within rtol 1e-4), with cuDNN's TF32 off
+    as the chip script runs it."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+    setconv_cuda.reset_launch_counts()
+    cs.al_reference(cuda)
+    assert setconv_cuda.launch_counts()["encode_offgrid"] > 0

@@ -12,9 +12,10 @@ checkpoint), serve a run directory (a ``TaskLoader`` over
 trip), train a run from data: synthetic data → preprocessing →
 ``Train.train_model`` → ``load_run`` → ``PredictService``, and validate
 such a run: ``Validate``'s metrics with a holdout, ``ValidateERA`` from raw
-fields and stations, and the quantised, chunked, threaded transfer.
-The kernel module must also import without ``nvcc``: the kernels are built
-at first use on the card.
+fields and stations, and the quantised, chunked, threaded transfer, and
+(with h5py blocked too) place stations by active learning, time it with the
+perf harness, and train through the YAML CLI. The kernel module must also
+import without ``nvcc``: the kernels are built at first use on the card.
 """
 
 import os
@@ -303,6 +304,57 @@ print("validated", vals)
 """)
     assert proc.returncode == 0, proc.stderr
     assert "validated" in proc.stdout
+
+
+def test_port_places_stations_and_trains_from_yaml_without_jax_pandas_msgpack_or_h5py(tmp_path):
+    blocked = _BLOCKED_ALL.replace('"msgpack")', '"msgpack", "h5py")')
+    assert "h5py" in blocked
+    proc = _run(blocked + f"""
+import numpy as np
+import torch
+import yaml
+import chip_smoke as cs
+from deepsensornz_tpu_torch import debug, paths, utils
+from deepsensornz_tpu_torch.al import GreedyAlgorithm
+from deepsensornz_tpu_torch.cli import train_downscaling
+from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+from deepsensornz_tpu_torch.perf import benchmark_fn, device_memory_stats
+cfg = ConvNPConfig(unet_channels=(8, 8), internal_density=30, rank=4, decoder_channels=8,
+                   mlp_hidden=8, compute_dtype="float32")
+task = cs.train_task(0, 1, cfg.internal_density, base_hw=(9, 8), aux_hw=(20, 18),
+                     n_stations=12, n_targets=10)
+model = cs.build_model(cfg, task, seed=0, device="cpu")
+rng = np.random.default_rng(0)
+cand, aux = rng.random((6, 2)).astype(np.float32), rng.normal(size=(6, 1)).astype(np.float32)
+alg = GreedyAlgorithm(model, mode="fast")
+out = alg.run(task, cand, n_placements=1, candidate_aux=aux)
+assert out["placements"].shape == (1, 2) and np.isfinite(out["acquisition_history"]).all()
+assert any((out["placements"][0] == c).all() for c in cand)
+timing = benchmark_fn(lambda: alg.run(task, cand, n_placements=1, candidate_aux=aux), reps=1)
+assert timing["p50_s"] > 0 and device_memory_stats()[0]["bytes_in_use"] is None
+debug.enable_debug(nans=True)
+alg.run(task, cand, n_placements=1, candidate_aux=aux)  # finite throughout
+debug.disable_debug()
+paths.set_data_paths({{"save_model": {{"fpath": {str(tmp_path)!r}}}}})
+args = {{"variable": "temperature", "model_name": "run", "synthetic": True, "n_epochs": 1,
+        "batch_size": 8, "unet_channels": [8, 8], "likelihood": "gnp", "internal_density": 24,
+        "highres_coarsen_factor": 2, "lowres_coarsen_factor": 4, "profile": "tuned"}}
+arg_path = {str(tmp_path / "args.yaml")!r}
+with open(arg_path, "w") as f:
+    yaml.safe_dump(args, f)
+run_dir = train_downscaling.main(["-arg_path", arg_path, "--device", "cpu"])
+assert sorted(__import__("os").listdir(run_dir)) == [
+    "args.yaml", "data_processor.json", "metadata.json", "opt_state.pt", "params.msgpack",
+    "params.pt", "task_loader.pkl"]
+assert utils.validate_and_convert_args({{"n_epochs": "2"}}) == {{"n_epochs": 2}}
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "flax", "optax", "deepsensornz_tpu", "pandas", "msgpack", "h5py")
+    and sys.modules[m] is not None)
+assert not leaked, leaked
+print("placed and trained", run_dir)
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "placed and trained" in proc.stdout
 
 
 def test_kernel_module_imports_without_nvcc():
