@@ -84,11 +84,19 @@ Phases (one line each; the first failure exits non-zero):
              largest GPU-CPU score difference), the same placements,
              histories and final context set within rtol 1e-4.
 11. train-kernels - B1's length-scale backward against its plain version in
-             float64, at the training shape (8x512 stations onto 608x608)
-             and the serving shape (24x512), for a random upstream gradient,
-             a density-only one and one positive on every channel; twice
-             each (the result must not change from run to run). CUDA-event
-             times of the kernel and of the plain f32 autograd backward.
+             float64, at the training shape (8x512 stations onto 608x608),
+             the serving shape (24x512) and a clustered layout (8x512, every
+             station in one 0.2x0.2 corner: most tiles empty), for a random
+             upstream gradient, a density-only one and one positive on
+             every channel; twice each (the result must not change from run
+             to run). At each shape: CUDA-event times of the wrapper and of
+             the plain f32 autograd backward, the points the kernel keeps per
+             32x32 tile (mean, largest, share of empty tiles), the share of
+             cells some point reaches, the bound by the bytes those cells
+             need and the kernel's share of it; at the training shape also
+             the time torch would take to sum the partials (the kernel does
+             it in its last block) and the kernel at l = 0.3, where every
+             point reaches every tile.
 12. train   - the flagship ConvNP's train step at ``perf/train_bench.py``'s
              shape (batch 8: the serving contexts plus 512 station targets
              with one aux channel; lr 5e-5): one warm-up step and 5 timed
@@ -97,7 +105,9 @@ Phases (one line each; the first failure exits non-zero):
              window's wall time, synchronise to synchronise, host batching
              and uploads included); losses, peak memory; checks finite
              losses, moved parameters, and B1's forward and backward
-             launched on every step.
+             launched on every step; prints the strides B1's upstream
+             gradient arrives with (a channel slice of the encodes'
+             concatenation, read in place).
 13. pipeline - a run trained from data and served, as a modeller does:
              the port's ``synthetic_bundle`` (temperature, 40 daily times, a
              139x130 base, a 2780x2600 DEM, 512 stations) ->
@@ -118,7 +128,8 @@ Phases (one line each; the first failure exits non-zero):
              training batch of the pipeline's loader (8 x its point
              capacity, ragged station sets in masked slots) with the
              trained model, and on the last request's 24-time task; B1's
-             l-gradient on the same batch in float64 as in [train-kernels].
+             l-gradient on the same batch in float64 and timed as in
+             [train-kernels].
 14. validate - the pipeline's run directory validated, before it is
              removed: ``Validate(run_dir)`` and, on the 8 validation times
              with station ids 0-7 held out, ``calculate_loss``,
@@ -332,13 +343,25 @@ def card_bound(flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def reached_cells(setconv, x1g, x2g, x, mask, ls):
+    """(B, H, W) bool: the cells where some point with mask != 0 has a
+    nonzero RBF weight in both coordinates."""
+    import torch
+
+    rows = (setconv.rbf(x1g[None, :, None], x[:, None, :, 0], ls) != 0).float()  # (B, H, N)
+    cols = ((setconv.rbf(x2g[None, None, :], x[:, :, None, 1], ls) != 0)
+            & (mask != 0)[..., None]).float()                                    # (B, N, W)
+    return torch.bmm(rows, cols) > 0
+
+
 def encode_work(setconv, x1g, x2g, x, y, mask, ls, grad: bool = False) -> tuple[float, float]:
     """(FLOPs, bytes) the station encode needs on these inputs: 2(C+1)
     FLOPs for each grid cell where a point with mask != 0 has a nonzero RBF
     weight in both coordinates (everything else adds exact zeros); the
     inputs read once and the (B, H, W, C+1) output written once. Its
     l-gradient forms two such sums per channel and reads the upstream
-    gradient and the forward's output instead of writing an output."""
+    gradient and the forward's output instead of writing an output, over
+    the reached cells only: every other cell's terms are exactly 0."""
     nh = (setconv.rbf(x1g[None, :, None], x[:, None, :, 0], ls) != 0).sum(1)  # (B, N)
     nw = (setconv.rbf(x2g[None, None, :], x[:, :, None, 1], ls) != 0).sum(2)  # (B, N)
     pairs = float((nh.double() * nw.double() * (mask != 0)).sum())
@@ -346,7 +369,8 @@ def encode_work(setconv, x1g, x2g, x, y, mask, ls, grad: bool = False) -> tuple[
     cells = x.shape[0] * x1g.shape[0] * x2g.shape[0] * c1
     inputs = 4 * (x.numel() + y.numel() + mask.numel() + x1g.numel() + x2g.numel())
     if grad:
-        return 2 * 2.0 * c1 * pairs, inputs + 2 * 4 * cells + 4
+        reached = float(reached_cells(setconv, x1g, x2g, x, mask, ls).sum()) * c1
+        return 2 * 2.0 * c1 * pairs, inputs + 2 * 4 * reached + 4
     return 2.0 * c1 * pairs, inputs + 4 * cells
 
 
@@ -453,6 +477,19 @@ def cycle_task(seed: int, n_tasks: int, density: float, base_hw=(139, 130),
         points=(PointContext(t(st_x), t(st_y), torch.ones(n_tasks, n_stations)),),
         xt=torch.zeros(n_tasks, 8, 2), yt=None, yt_mask=torch.ones(n_tasks, 8),
         yt_aux=torch.zeros(n_tasks, 8, 1), x1g=t(x1g), x2g=t(x2g))
+
+
+def grad_task(n_tasks: int, density: float, corner: bool = False):
+    """``[train-kernels]``'s inputs for B1's l-gradient: a serving cycle of
+    ``n_tasks`` tasks, its stations uniform on the domain or, with
+    ``corner``, all in one 0.2 x 0.2 corner (most cell tiles empty)."""
+    from deepsensornz_tpu_torch.task.task import PointContext
+
+    task = cycle_task(10 + n_tasks, n_tasks, density)
+    if corner:
+        p = task.points[0]
+        task = dataclasses.replace(task, points=(PointContext(0.2 * p.x, p.y, p.mask),))
+    return task
 
 
 def train_task(seed: int, n_tasks: int, density: float, base_hw=(139, 130),
@@ -847,6 +884,76 @@ def grad_check(phase: str, label: str, ls, task, seed: int) -> tuple[float, tupl
             raise AssertionError("encode_offgrid_grad changed from run to run")
         del terms
     return max_err, pts + (ls, g_random, fwd)
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = TIMING_REPS) -> float:
+    """Device time per launch of the CUDA kernel whose name holds
+    ``kernel``, over ``reps`` calls of ``fn`` under ``torch.profiler``."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if kernel in e.key:
+            return (getattr(e, "device_time_total", None) or e.cuda_time_total) / 1e3 / e.count
+    raise AssertionError(f"the profiler saw no {kernel} kernel")
+
+
+def grad_timing(phase: str, label: str, args) -> dict:
+    """B1's l-gradient on ``grad_check``'s arguments: CUDA-event times of
+    the wrapper and of the plain f32 autograd backward, the points the
+    kernel keeps per tile, the share of cells reached, the bound by the work
+    these inputs need and the kernel's share of it."""
+    import torch
+
+    from deepsensornz_tpu_torch.ops import setconv, setconv_cuda
+
+    pts, ls, g = args[:5], args[5], args[6]
+    x1g, x2g, x, _, mask = pts
+    ms = cuda_ms(lambda: setconv_cuda.encode_offgrid_grad(*args))
+    dev_ms = kernel_device_ms(lambda: setconv_cuda.encode_offgrid_grad(*args),
+                              "encode_offgrid_grad_kernel")
+    ls_req = ls.clone().requires_grad_(True)
+    enc = setconv.setconv_encode_offgrid(*pts, ls_req)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(enc, ls_req, g, retain_graph=True))
+    del enc
+    kept = setconv_cuda.grad_tile_points(x1g, x2g, x, mask, ls).sum(-1).float()
+    reached = float(reached_cells(setconv, x1g, x2g, x, mask, ls).float().mean())
+    bnd = card_bound(*encode_work(setconv, *pts, ls, grad=True))
+    say(phase, f"encode_offgrid_grad {label} {tuple(g.shape)}: wrapper {ms:.4f} ms, kernel "
+        f"alone {dev_ms:.4f} ms (profiler, device time per launch), plain f32 "
+        f"autograd backward {plain_ms:.3f} ms (CUDA events, median of {TIMING_REPS}); "
+        f"points kept per {setconv_cuda.GRAD_TILE}x{setconv_cuda.GRAD_TILE} tile mean "
+        f"{float(kept.mean()):.1f}, largest "
+        f"{float(kept.max()):.0f} of {x.shape[1]}, empty tiles "
+        f"{100 * float((kept == 0).float().mean()):.1f} %; cells reached {100 * reached:.2f} %; "
+        f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (the reached cells' upstream "
+        f"and output); bound / wrapper {100 * bnd['bound_ms'] / ms:.1f} %, bound / kernel "
+        f"alone {100 * bnd['bound_ms'] / dev_ms:.1f} %")
+    return {"ms": ms, "plain_ms": plain_ms, **bnd}
+
+
+@contextlib.contextmanager
+def grad_out_strides(setconv_cuda):
+    """Records (shape, strides, contiguous) of each upstream gradient B1's
+    backward receives inside the block; yields the list."""
+    fn = setconv_cuda._EncodeOffgrid
+    saved = fn.__dict__["backward"]
+    seen = []
+
+    def backward(ctx, grad_out):
+        seen.append((tuple(grad_out.shape), grad_out.stride(), grad_out.is_contiguous()))
+        return saved.__func__(ctx, grad_out)
+
+    fn.backward = staticmethod(backward)
+    try:
+        yield seen
+    finally:
+        fn.backward = saved
 
 
 def sample_serve(dev, model, dp, dem, aux_field, target_var, setconv_cuda) -> dict:
@@ -1378,30 +1485,40 @@ def serve_reference(dev, dp, target_var) -> None:
 
 
 def train_kernels(dev, model, setconv, setconv_cuda) -> dict:
-    """Phase 11: B1's backward against its plain version in float64 at the
-    training and serving shapes; returns the training shape's numbers."""
+    """Phase 11: B1's backward against its plain version in float64 and
+    timed at the training, serving and clustered shapes; returns the
+    training shape's numbers."""
     import torch
 
     ls = model.lengthscale("ls_points_0").detach()
     out = {}
-    for label, n_tasks in (("train", N_TRAIN_TASKS), ("serve", N_TASKS)):
-        task = cycle_task(10 + n_tasks, n_tasks, model.cfg.internal_density).to(dev)
+    for label, n_tasks in (("train", N_TRAIN_TASKS), ("serve", N_TASKS),
+                           ("corner", N_TRAIN_TASKS)):
+        task = grad_task(n_tasks, model.cfg.internal_density, label == "corner").to(dev)
         max_err, args = grad_check("train-kernels", label, ls, task, seed=n_tasks)
-        pts, g_random, fwd = args[:5], args[6], args[7]
-        ms = cuda_ms(lambda: setconv_cuda.encode_offgrid_grad(*args))
-        ls_req = ls.clone().requires_grad_(True)
-        enc = setconv.setconv_encode_offgrid(*pts, ls_req)
-        plain_ms = cuda_ms(lambda: torch.autograd.grad(enc, ls_req, g_random, retain_graph=True))
-        say("train-kernels", f"{label}: kernel {ms:.3f} ms, plain f32 autograd backward "
-            f"{plain_ms:.3f} ms (CUDA events, median of {TIMING_REPS})")
+        res = grad_timing("train-kernels", label, args)
         if label == "train":
-            bnd = card_bound(*encode_work(setconv, *pts, ls, grad=True))
-            say("train-kernels", f"{label}: bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
-            out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **bnd,
-                   "library_ms": None}
+            out = {"max_abs_err": max_err, **res, "library_ms": None}
+            B, H, W = args[6].shape[:3]
+            tile = setconv_cuda.GRAD_TILE
+            partials = torch.rand((B, -(-H // tile), -(-W // tile)), dtype=torch.float64,
+                                  device=dev)
+            fold_ms = cuda_ms(lambda: (partials.sum() / ls.double()).float())
+            say("train-kernels", f"train: the partials' sum, division and cast in torch "
+                f"{fold_ms:.4f} ms (CUDA events), {100 * fold_ms / (res['ms'] + fold_ms):.0f} % "
+                f"of the wrapper with them; the kernel's last block does them instead")
+            wide = torch.full_like(ls, 0.3)
+            with torch.no_grad():
+                fwd_wide = setconv_cuda.encode_offgrid(*args[:5], wide)
+            wide_args = args[:5] + (wide, args[6], fwd_wide)
+            kept = setconv_cuda.grad_tile_points(*args[:3], args[4], wide).sum(-1)
+            wide_ms = cuda_ms(lambda: setconv_cuda.encode_offgrid_grad(*wide_args))
+            say("train-kernels", f"train at l = 0.3: kernel {wide_ms:.4f} ms with "
+                f"{int(kept.min())}-{int(kept.max())} points kept per tile (CUDA events)")
+            del fwd_wide, wide_args
         else:
             out["max_abs_err"] = max(out["max_abs_err"], max_err)
-        del enc, args, pts, g_random, fwd, task
+        del args, task
     return out
 
 
@@ -1422,7 +1539,13 @@ def train_flagship(dev, model, cfg, setconv_cuda) -> dict:
     setconv_cuda.reset_launch_counts()
     losses, step_ms, step_s = [], [], []
     for i in range(1 + TRAIN_STEPS):
-        (state, loss), ms, wall = timed(lambda: step(state, task, TRAIN_LR))
+        if i == 0:  # the warm-up step records the upstream's layout
+            with grad_out_strides(setconv_cuda) as seen:
+                (state, loss), ms, wall = timed(lambda: step(state, task, TRAIN_LR))
+            say("train", f"B1's upstream gradient arrives as (shape, strides, contiguous) "
+                f"{seen}: read in place")
+        else:
+            (state, loss), ms, wall = timed(lambda: step(state, task, TRAIN_LR))
         step_ms.append(ms)
         step_s.append(wall)
         losses.append(float(loss))
@@ -1593,9 +1716,11 @@ def pipeline_phase(dev, cfg, setconv, setconv_cuda) -> tuple[dict, dict, dict]:
         # slots), with the trained length scales; outside the counts above
         batch = take(tr.create_tasks.calls[0]["out"], list(range(N_TRAIN_TASKS))).to(dev)
         errs = {"encode_offgrid": encode_check(tr.model, batch, "pipeline")}
-        errs["encode_offgrid_grad"] = grad_check(
+        errs["encode_offgrid_grad"], grad_args = grad_check(
             "pipeline", "train batch", tr.model.lengthscale("ls_points_0").detach(), batch,
-            seed=N_TRAIN_TASKS)[0]
+            seed=N_TRAIN_TASKS)
+        grad_timing("pipeline", "train batch", grad_args)
+        del grad_args
         del tr, out, batch
 
         t0 = time.perf_counter()

@@ -95,7 +95,8 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.setconv_encode_offgrid.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.setconv_encode_offgrid.restype = i
-    lib.setconv_encode_offgrid_grad.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.setconv_encode_offgrid_grad.argtypes = [p, p, p, p, p, p, p, p, i, p, p,
+                                                *[i] * 5, ctypes.c_float, p]
     lib.setconv_encode_offgrid_grad.restype = i
     lib.setconv_decode_grid.argtypes = [p, p, i, p, p, p, p, p, p, *[i] * 12, p]
     lib.setconv_decode_grid.restype = i

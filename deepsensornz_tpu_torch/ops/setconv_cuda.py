@@ -19,8 +19,8 @@ The encode is differentiable in its length-scale only (the parameter the
 model learns through it); the gridded decode is forward only, since no
 training path runs it. A call that autograd would have to differentiate
 otherwise raises. The kernels run on the current CUDA stream, allocate
-nothing themselves (the wrapper allocates outputs and partial sums) and do
-not synchronise.
+nothing themselves (the wrapper allocates outputs, partial sums and the
+gradient's ticket counter) and do not synchronise.
 """
 
 from __future__ import annotations
@@ -32,7 +32,11 @@ from deepsensornz_tpu_torch.ops import setconv as plain
 
 # csrc/setconv_encode_grad.cu: grid rows and columns per block (one partial
 # sum each)
-ENCODE_TILE = 64
+GRAD_TILE = 32
+# the gradient kernel's culling radius in units of ℓ: exp(-GRAD_REACH²/2)
+# rounds to 0 in f32 (denormals kept), so a point farther than
+# GRAD_REACH·ℓ from a tile in either coordinate adds exactly 0 there
+GRAD_REACH = 14.5
 # csrc/setconv_decode.cu: target rows per block, source rows per k-block and
 # source columns per chunk (all 64); target-column tiles of 8 per block
 DECODE_BLOCK = 64
@@ -119,7 +123,12 @@ class _EncodeOffgrid(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         x1g, x2g, x, y, mask, ls, out = ctx.saved_tensors
-        g = encode_offgrid_grad(x1g, x2g, x, y, mask, ls, grad_out.contiguous(), out)
+        # the model's upstream is a channel slice of the encodes'
+        # concatenation, read in place; any other layout (the expanded
+        # gradient of a sum, an NCHW-contiguous one) is copied first
+        if grad_out.is_cuda and _cell_stride(grad_out) is None:
+            grad_out = grad_out.contiguous()
+        g = encode_offgrid_grad(x1g, x2g, x, y, mask, ls, grad_out, out)
         return None, None, None, None, None, g.to(ls.dtype).reshape(ls.shape)
 
 
@@ -150,28 +159,43 @@ def encode_offgrid_grad(x1g, x2g, x, y, mask, lengthscale, grad_out, out) -> tor
     (B, H, W, C+1): a 0-d float32 tensor. Same contract as
     :func:`.setconv.setconv_encode_offgrid_grad_ls`, plus ``out``, the
     forward's output on these inputs, from which the kernel reads the
-    forward's sums (the plain version on the CPU forms them itself). On a
-    CUDA device the kernel writes one float64 partial sum per 64×64 cell
-    tile and the partials are summed here in a fixed order, so the result
-    is the same from run to run."""
+    forward's sums (the plain version on the CPU forms them itself).
+
+    On a CUDA device ``grad_out`` may be any float32 tensor whose channels
+    are adjacent and whose cells are evenly strided, such as a channel
+    slice of a wider NHWC gradient: the kernel reads it in place. Each
+    32×32 cell tile takes only the points of :func:`grad_tile_points`;
+    its float64 partial sum is written per tile and the partials are
+    summed in a fixed order on the device, so the result is the same from
+    run to run."""
     if _device_of(x) == "cpu":
         return plain.setconv_encode_offgrid_grad_ls(x1g, x2g, x, y, mask, lengthscale, grad_out)
     _forward_only(x1g, x2g, x, y, mask, lengthscale, grad_out, out)
     dev = x.device
     B, N, C, H, W = _check_points(x1g, x2g, x, y, mask)
-    _check("grad_out", grad_out, (B, H, W, C + 1), dev)
+    if grad_out.device != dev or grad_out.dtype != torch.float32 \
+            or tuple(grad_out.shape) != (B, H, W, C + 1):
+        raise ValueError(f"grad_out must be float32 {(B, H, W, C + 1)} on {dev}, got "
+                         f"{grad_out.dtype} {tuple(grad_out.shape)} on {grad_out.device}")
+    stride = _cell_stride(grad_out)
+    if stride is None:
+        raise ValueError(f"grad_out's channels must be adjacent and its cells evenly "
+                         f"strided, got strides {grad_out.stride()}")
     if N == 0 or B * H * W == 0:  # the output does not depend on ℓ
         return torch.zeros((), dtype=torch.float32, device=dev)
     _check("out", out, (B, H, W, C + 1), dev)
     ls = _lengthscale(lengthscale, dev)
-    partials = torch.empty((B, _cdiv(H, ENCODE_TILE), _cdiv(W, ENCODE_TILE)),
-                           dtype=torch.float64, device=dev)
+    # one float64 partial per cell tile, then the last block's ticket
+    # counter, all zeroed
+    scratch = torch.zeros(B * _cdiv(H, GRAD_TILE) * _cdiv(W, GRAD_TILE) + 1,
+                          dtype=torch.float64, device=dev)
+    result = torch.empty((), dtype=torch.float32, device=dev)
     _launch("setconv_encode_offgrid_grad", x1g.data_ptr(), x2g.data_ptr(), x.data_ptr(),
             y.data_ptr(), mask.data_ptr(), ls.data_ptr(), out.data_ptr(),
-            grad_out.data_ptr(), partials.data_ptr(), B, N, H, W, C + 1, device=dev)
+            grad_out.data_ptr(), stride, scratch.data_ptr(), result.data_ptr(),
+            B, N, H, W, C + 1, GRAD_REACH, device=dev)
     encode_offgrid_grad.launches += 1
-    # the kernel's terms carry (d/ℓ)², so the 1/ℓ³ of dS/dℓ leaves 1/ℓ here
-    return (partials.sum() / ls[0].double()).float()
+    return result
 
 
 encode_offgrid_grad.launches = 0
@@ -179,6 +203,41 @@ encode_offgrid_grad.launches = 0
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _cell_stride(t: torch.Tensor) -> int | None:
+    """The elements between neighbouring cells of an NHWC tensor whose
+    channels are adjacent and whose cells are evenly strided (contiguous,
+    or a channel slice of a wider NHWC tensor); None for any other
+    layout."""
+    B, H, W, C = t.shape
+    if t.is_contiguous():
+        return C
+    s = t.stride(2)
+    want = (H * W * s, W * s, s, 1)
+    if s >= C and all(n == 1 or st == w for n, st, w in zip(t.shape, t.stride(), want)):
+        return s
+    return None
+
+
+def grad_tile_points(x1g, x2g, x, mask, lengthscale) -> torch.Tensor:
+    """The points the ℓ-gradient kernel keeps for each cell tile:
+    (B, ⌈H/GRAD_TILE⌉, ⌈W/GRAD_TILE⌉, N) bool. A point is kept where its
+    mask is nonzero and its distance to the tile's x1 range and to its x2
+    range (min to max over the tile's rows and columns, 0 inside), divided
+    by ℓ in f32, is at most ``GRAD_REACH`` in both. Every other (point, cell) pair of
+    the tile has an f32 RBF weight of exactly 0."""
+    ls = _lengthscale(lengthscale, x.device)[0]
+
+    def near(g, p):  # g (L,), p (B, N) -> (B, tiles, N)
+        lo = torch.stack([c.min() for c in g.float().split(GRAD_TILE)])[None, :, None]
+        hi = torch.stack([c.max() for c in g.float().split(GRAD_TILE)])[None, :, None]
+        p = p.float()[:, None, :]
+        gap = torch.fmax(torch.fmax(lo - p, p - hi), torch.zeros((), device=p.device))
+        return ~(gap / ls > GRAD_REACH)
+
+    return ((mask != 0)[:, None, None, :] & near(x1g, x[..., 0])[:, :, None, :]
+            & near(x2g, x[..., 1])[:, None, :, :])
 
 
 def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -120,16 +120,32 @@ def test_encode_offgrid_empty_point_set(cuda):
 # every cell whose summands cancel, so its error is judged against both the
 # value and the summands, a few f32 roundings each:
 # |got - ref| <= 1e-5·|ref| + 1e-7·Σ|summands|
-@pytest.mark.parametrize("B,N,C,H,W,ls,p_mask", [
-    (2, 16, 2, 32, 48, 0.12, 0.25),   # partial mask
-    (1, 7, 1, 24, 40, 0.2, 0.0),      # tiles larger than the grid
-    (2, 300, 2, 24, 24, 0.15, 0.1),   # several point chunks, ragged last one
-    (1, 64, 7, 70, 130, 0.05, 0.0),   # many channels, ragged grid tiles
-    (3, 512, 1, 200, 136, 0.005, 0.0),  # serving length-scale, sparse weights
+@pytest.mark.parametrize("B,N,C,H,W,ls,p_mask,layout", [
+    (2, 16, 2, 32, 48, 0.12, 0.25, "uniform"),   # partial mask
+    (1, 7, 1, 24, 40, 0.2, 0.0, "uniform"),      # tiles larger than the grid
+    (2, 300, 2, 24, 24, 0.15, 0.1, "uniform"),   # several point chunks, ragged last one
+    (1, 64, 7, 70, 130, 0.05, 0.0, "uniform"),   # many channels, ragged grid tiles
+    (3, 512, 1, 200, 136, 0.005, 0.0, "uniform"),  # serving length-scale, sparse weights
+    (2, 512, 1, 200, 136, 0.005, 0.0, "corner"),   # stations in one corner: empty tiles
+    (2, 600, 1, 130, 200, 0.02, 0.95, "uniform"),  # 95 % masked slots
+    (2, 64, 1, 200, 136, 0.01, 0.0, "boundary"),   # points at the reach from a tile edge
+    (2, 100, 7, 70, 130, 0.05, 0.1, "uniform"),  # C1 = 8: seven passes
+    (2, 700, 1, 130, 140, 0.3, 0.0, "uniform"),  # every point reaches every tile
+    (2, 300, 1, 150, 100, 0.02, 0.1, "decreasing"),  # grid running down
 ])
 @pytest.mark.parametrize("upstream", ["random", "density", "positive"])
-def test_encode_offgrid_grad_kernel(cuda, B, N, C, H, W, ls, p_mask, upstream):
+def test_encode_offgrid_grad_kernel(cuda, B, N, C, H, W, ls, p_mask, layout, upstream):
     x1g, x2g, x, y, mask = _points(np.random.default_rng(0), B, N, C, H, W, p_mask, cuda)
+    if layout == "corner":
+        x = 0.2 * x
+    elif layout == "decreasing":
+        x1g, x2g = x1g.flip(0), x2g.flip(0)
+    elif layout == "boundary":  # at GRAD_REACH·ℓ from row tile 0's upper edge, ±1 step
+        r = torch.tensor(setconv_cuda.GRAD_REACH, device=cuda) * ls
+        at = x1g[setconv_cuda.GRAD_TILE - 1] + r
+        x[:, 0::3, 0] = at
+        x[:, 1::3, 0] = torch.nextafter(at, at + 1)
+        x[:, 2::3, 0] = torch.nextafter(at, at - 1)
     gen = torch.Generator(device=cuda).manual_seed(0)
     g = torch.randn(B, H, W, C + 1, generator=gen, device=cuda)
     if upstream == "density":  # one sign, nothing cancels
@@ -152,15 +168,59 @@ def test_encode_offgrid_grad_kernel(cuda, B, N, C, H, W, ls, p_mask, upstream):
     assert abs(float(got) - ref) <= bound, (float(got), ref, bound)
 
 
+def test_encode_offgrid_grad_reads_a_strided_upstream(cuda):
+    """A grad_out that is a channel slice of a wider NHWC tensor is read in
+    place: bitwise the result of the same gradient made contiguous; a
+    layout whose cells are not evenly strided raises."""
+    x1g, x2g, x, y, mask = _points(np.random.default_rng(2), 3, 400, 1, 150, 130, 0.1, cuda)
+    with torch.no_grad():
+        fwd = setconv_cuda.encode_offgrid(x1g, x2g, x, y, mask, 0.01)
+    wide = torch.randn(3, 150, 130, 11, device=cuda)
+    g = wide[..., 9:]
+    assert not g.is_contiguous()
+    got = setconv_cuda.encode_offgrid_grad(x1g, x2g, x, y, mask, 0.01, g, fwd)
+    want = setconv_cuda.encode_offgrid_grad(x1g, x2g, x, y, mask, 0.01, g.contiguous(), fwd)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="evenly strided"):
+        setconv_cuda.encode_offgrid_grad(x1g, x2g, x, y, mask, 0.01,
+                                         wide.transpose(1, 2).contiguous().transpose(1, 2)
+                                         [..., 9:], fwd)
+
+
 def test_encode_offgrid_grad_through_autograd(cuda):
     """The autograd function: the forward kernel, then the backward kernel
-    for ℓ, against autograd of the plain forward (f32) on the same inputs."""
+    for ℓ, against autograd of the plain forward (f32) on the same inputs.
+    The encode is concatenated after another encode, as in the model, so
+    its gradient arrives as a channel slice of the concatenation's."""
     x1g, x2g, x, y, mask = _points(np.random.default_rng(0), 2, 300, 2, 70, 130, 0.1, cuda)
-    g = torch.randn(2, 70, 130, 3, device=cuda)
+    other = torch.randn(2, 70, 130, 4, device=cuda)
+    g = torch.randn(2, 70, 130, 7, device=cuda)
     grads = []
     for fn in (setconv_cuda.encode_offgrid, setconv.setconv_encode_offgrid):
         ls = torch.tensor(0.05, device=cuda, requires_grad=True)
-        grads.append(torch.autograd.grad((fn(x1g, x2g, x, y, mask, ls) * g).sum(), ls)[0])
+        enc = torch.cat([other, fn(x1g, x2g, x, y, mask, ls)], dim=-1)
+        grads.append(torch.autograd.grad((enc * g).sum(), ls)[0])
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("loss", ["sum", "channel-first"])
+def test_encode_offgrid_grad_of_an_upstream_it_cannot_read_in_place(cuda, loss):
+    """Upstreams whose cells are not evenly strided reach the backward too:
+    the expanded gradient of ``enc.sum()`` (every stride 0) and the
+    channel-first one of a loss taken over ``enc.permute(0, 3, 1, 2)``.
+    The backward copies them and still launches the kernel, and the result
+    matches autograd of the plain forward (f32)."""
+    x1g, x2g, x, y, mask = _points(np.random.default_rng(3), 2, 300, 2, 70, 130, 0.1, cuda)
+    g = torch.randn(2, 3, 70, 130, device=cuda)
+    grads = []
+    for fn in (setconv_cuda.encode_offgrid, setconv.setconv_encode_offgrid):
+        ls = torch.tensor(0.05, device=cuda, requires_grad=True)
+        enc = fn(x1g, x2g, x, y, mask, ls)
+        total = enc.sum() if loss == "sum" else (enc.permute(0, 3, 1, 2) * g).sum()
+        before = setconv_cuda.encode_offgrid_grad.launches
+        grads.append(torch.autograd.grad(total, ls)[0])
+        launched = setconv_cuda.encode_offgrid_grad.launches - before
+        assert launched == (fn is setconv_cuda.encode_offgrid)
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=0)
 
 

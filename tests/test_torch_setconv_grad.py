@@ -118,3 +118,82 @@ def test_encode_refuses_grad_for_points(rng, which):
         setconv_cuda.encode_offgrid(*t, torch.tensor(0.1, requires_grad=True))
     with torch.no_grad():  # nothing to differentiate: the forward runs
         setconv_cuda.encode_offgrid(*t, 0.1)
+
+
+# -- the gradient kernel's per-tile culling (setconv_cuda.grad_tile_points) -----
+
+def _culling_inputs(rng, grid, ls, layout):
+    """Two tasks on a 150 x 100 grid (five row tiles, the last 22 rows;
+    four column tiles, the last 4 columns), 40 points with a fifth masked
+    and, for ``boundary``, points at exactly GRAD_REACH·ℓ (in f32) from a
+    tile edge and one f32 step either side of it."""
+    H, W, N = 150, 100, 40
+    x1g = np.linspace(0, 1, H).astype(np.float32)
+    x2g = np.linspace(0, 1, W).astype(np.float32)
+    if grid == "decreasing":
+        x1g, x2g = x1g[::-1].copy(), x2g[::-1].copy()
+    x = rng.random((2, N, 2)).astype(np.float32)
+    y = rng.normal(size=(2, N, 1)).astype(np.float32)
+    mask = (rng.random((2, N)) > 0.2).astype(np.float32)
+    if layout == "boundary":
+        r = np.float32(setconv_cuda.GRAD_REACH) * np.float32(ls)
+        T = setconv_cuda.GRAD_TILE
+        edge1 = x1g[:T].max()  # the first row tile's upper edge
+        edge2 = x2g[:T].min()  # the first column tile's lower edge
+        for i, step in enumerate((-1, 0, 1)):
+            p1 = np.float32(edge1 + r)
+            p2 = np.float32(edge2 - r)
+            for _ in range(abs(step)):
+                p1 = np.nextafter(p1, np.float32(np.inf * step), dtype=np.float32)
+                p2 = np.nextafter(p2, np.float32(-np.inf * step), dtype=np.float32)
+            x[:, i] = (p1, x2g[10])     # at the reach in x1 only
+            x[:, 3 + i] = (x1g[10], p2)  # in x2 only
+            x[:, 6 + i] = (p1, p2)       # in both
+            mask[:, [i, 3 + i, 6 + i]] = 1.0
+    g = rng.normal(size=(2, H, W, 2)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (x1g, x2g, x, y, mask)], torch.from_numpy(g)
+
+
+@pytest.mark.parametrize("layout", ["uniform", "boundary"])
+@pytest.mark.parametrize("ls", [0.005, 0.05, 0.3])
+@pytest.mark.parametrize("grid", ["increasing", "decreasing"])
+def test_grad_tile_culling_is_exact(rng, grid, ls, layout):
+    """Every (tile, point) pair the kernel drops has an f32 RBF weight of
+    exactly 0 at every cell of the tile, and the closed form summed tile
+    by tile over the kept points alone equals the full closed form within
+    f32 rounding (the kernel's tolerance against float64)."""
+    (x1g, x2g, x, y, mask), g = _culling_inputs(rng, grid, ls, layout)
+    keep = setconv_cuda.grad_tile_points(x1g, x2g, x, mask, ls)
+    T = setconv_cuda.GRAD_TILE
+    assert keep.shape == (2, 5, 4, 40) and keep.dtype == torch.bool
+    w1 = tsc.rbf(x1g[None, :, None], x[:, None, :, 0], ls)  # (B, H, N)
+    w2 = tsc.rbf(x2g[None, None, :], x[:, :, None, 1], ls)  # (B, N, W)
+    culled = torch.zeros((), dtype=torch.float32)
+    for i in range(keep.shape[1]):
+        rows = slice(i * T, (i + 1) * T)
+        for j in range(keep.shape[2]):
+            cols = slice(j * T, (j + 1) * T)
+            dropped = (mask != 0) & ~keep[:, i, j]  # (B, N)
+            reach = (w1[:, rows, :] != 0).any(1) & (w2[:, :, cols] != 0).any(2)
+            assert not bool((dropped & reach).any()), (i, j)
+            culled = culled + tsc.setconv_encode_offgrid_grad_ls(
+                x1g[rows], x2g[cols], x, y, mask * keep[:, i, j], ls, g[:, rows, cols])
+    if ls == 0.3 and layout == "uniform":  # every point reaches every tile
+        assert bool((keep == (mask != 0)[:, None, None, :]).all())
+    elif ls < 0.3:
+        assert not bool(keep.all())
+    full = tsc.setconv_encode_offgrid_grad_ls(x1g, x2g, x, y, mask, ls, g)
+    ref, scale = _reference([a.numpy() for a in (x1g, x2g, x, y, mask)], ls, g.numpy())
+    _assert_grad_close(float(culled), ref, scale)
+    _assert_grad_close(float(full), ref, scale)
+
+
+@pytest.mark.parametrize("reach,underflows", [(setconv_cuda.GRAD_REACH, True),
+                                              (setconv_cuda.GRAD_REACH - 0.5, False)])
+def test_grad_reach_underflows_f32(reach, underflows):
+    """exp(-R²/2) is exactly 0 in f32 at the kernel's reach R, computed as
+    the kernel does (d·d, then ·(−0.5), then exp), and a denormal above 0
+    half a unit closer."""
+    d = torch.tensor(reach, dtype=torch.float32)
+    w = torch.exp(-0.5 * (d * d))
+    assert (float(w) == 0.0) is underflows, float(w)
