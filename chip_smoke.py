@@ -169,11 +169,42 @@ Phases (one line each; the first failure exits non-zero):
              ``load_run`` -> one ``PredictService`` request. Each stage's
              wall time, losses, launches (B1, its l-gradient, B2), no plain
              SetConv on the card, the run's files and a bitwise response.
+18. ddp    - data-parallel training of the flagship at [train]'s batch-8
+             task in 2 processes of this script (``--ddp-worker``) on the
+             one card, started by ``initialize_multihost`` from the JAX
+             package's environment names with gloo on CUDA tensors (NCCL
+             refuses two ranks on one device: a correctness check, not a
+             scaling figure), cuDNN's deterministic algorithms. In bf16 and
+             f32: each rank's summed gradient and, after one step, its
+             parameters, Adam state and loss bitwise equal to one process
+             summing the two shards' gradients (the whole batch's
+             denominators); the ranks bitwise equal after 3 steps; in f32
+             the loss within rel 1e-5 of the plain batch-8 step and the
+             parameters within rtol 1e-5 / atol 1e-7 (``head_out``'s kernel
+             everywhere, the rest where |g| >= 1e-6), in bf16 the largest
+             difference reported; a batch of 7 padded to 8 against one
+             process's batch of 7; B1 and its l-gradient launched on each
+             rank, no plain SetConv. Per rank: step CUDA-event and wall
+             times, the all-reduce's time and bytes, peak memory. Then one
+             step on a one-process NCCL group, bitwise the plain step.
+19. remat  - the flagship batch-8 step with ``remat=False`` and with
+             ``remat=True`` under None, ``"acts"`` and ``"dots"``: one
+             warm-up and 3 timed steps each, median step time and peak
+             memory; the loss, the step losses and the l-gradients against
+             ``remat=False`` (cuDNN's deterministic algorithms): None and
+             ``"dots"`` bitwise, ``"acts"`` within ``REMAT_ACTS_RTOL``.
+20. resume - ``Trainer.fit`` of the flagship in f32 (16 tasks, 3 epochs),
+             and 2 epochs then a resume from the checkpoint's
+             ``params.msgpack`` and ``opt_state.msgpack`` alone (the
+             port's codec; the ``.pt`` files removed): losses and final
+             parameters within rtol 1e-4 of the straight run, whether
+             bitwise; launches, no plain SetConv.
 
 The first lines also say whether scipy (with its version), pandas, PyYAML
 and matplotlib import. The last two lines are a JSON object of per-kernel
 results (its launch counts are those of the main-path phases: serve,
-service, sample-serve, ar, al, train, pipeline, validate and cli-train) and the
+service, sample-serve, ar, al, train, pipeline, validate, cli-train, ddp
+(both ranks), remat and resume) and the
 ``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy,
 scipy and the standard library.
 """
@@ -284,6 +315,28 @@ VAL_REF_RTOL, VAL_REF_PIT_RTOL = 1e-4, 1e-3
 # rate, whichever is larger (H100 SXM data sheet, at a 700 W limit)
 PEAK_TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
+# [ddp]: two ranks on the one card, 3 steps each; against the plain
+# batch-8 step in f32, JAX's own bound for its data-parallel step
+# (tests/test_parallel.py: the loss rel 1e-5, head_out's kernel rtol 1e-5 /
+# atol 1e-7), and the same bound on every parameter where the gradient is
+# well determined: |g| clipped to global norm 10 >= TRAIN_REF_STEP_MIN_GRAD,
+# and |g| >= DDP_GRAD_MARGIN times the difference between the summed
+# shards' gradient and the batch-8 one. Elsewhere Adam's first step
+# g/(|g| + 1e-8) turns a rounding-sized difference of a cancelling gradient
+# into O(lr); those are counted.
+DDP_WORLD, DDP_STEPS, DDP_TIMEOUT = 2, 3, 300
+DDP_RTOL, DDP_ATOL, DDP_GRAD_MARGIN = 1e-5, 1e-7, 10.0
+REMAT_STEPS = 3  # timed, after one warm-up step
+# [remat], with cuDNN's deterministic algorithms: None and "dots" recompute
+# the same operations and must give the same bits; "acts" runs the stem in
+# two blocks, so the encoder's gradient is two bf16 products summed where
+# remat=False has one product of a bf16 sum (an 8-bit mantissa, 3.9e-3 a
+# unit): its l-gradients within 1e-2 (6.4e-4 on a small bf16 model on the
+# CPU), the losses of the steps after the first within 1e-3
+REMAT_ACTS_RTOL, REMAT_LOSS_RTOL = 1e-2, 1e-3
+# [resume]: 16 tasks (2 steps an epoch), 3 epochs; the f32 tolerance of the
+# pipeline's losses (tests/test_torch_pipeline.py)
+RESUME_TASKS, RESUME_EPOCHS, RESUME_RTOL = 16, 3, 1e-4
 
 KERNELS = {
     "encode_offgrid": ("deepsensornz_tpu_torch/csrc/setconv_encode.cu",
@@ -2222,8 +2275,8 @@ def cli_train_phase(dev, cfg, setconv, setconv_cuda) -> dict:
         say("cli-train", f"train losses {out['train_losses']}, validation losses "
             f"{out['val_losses']}, std_scale {out.get('std_scale')}; launches {train_counts}; "
             f"plain versions called on the card {plain_train}")
-        want_files = ["args.yaml", "data_processor.json", "metadata.json", "opt_state.pt",
-                      "params.msgpack", "params.pt", "task_loader.pkl"]
+        want_files = ["args.yaml", "data_processor.json", "metadata.json", "opt_state.msgpack",
+                      "opt_state.pt", "params.msgpack", "params.pt", "task_loader.pkl"]
         if files != want_files:
             raise AssertionError(f"the CLI wrote {files}, not {want_files}")
         losses = out["train_losses"] + out["val_losses"]
@@ -2284,6 +2337,454 @@ def cli_train_phase(dev, cfg, setconv, setconv_cuda) -> dict:
             raise AssertionError("a plain SetConv ran on the card in the CLI run")
         del svc
     return {k: train_counts[k] + serve_counts[k] for k in train_counts}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms for the block, so
+    that two runs of one computation give the same bits."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def ddp_setting(size: str):
+    """``[ddp]``'s configs and batch: the flagship ConvNP (bf16, and the
+    same in f32) at ``[train]``'s batch-8 task, or (``"small"``, the card
+    test's) ``[train-reference]``'s small model at batch 8."""
+    from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+
+    if size == "flagship":
+        cfg = ConvNPConfig(unet_channels=(64, 64, 64, 64), likelihood="gnp",
+                           internal_density=500, rank=64, decoder_channels=64, mlp_hidden=64,
+                           kernel_size=5, compute_dtype="bfloat16")
+        task = train_task(20, N_TRAIN_TASKS, cfg.internal_density)
+    else:
+        cfg = ConvNPConfig(unet_channels=(8, 8), likelihood="gnp", internal_density=40,
+                           rank=4, decoder_channels=8, mlp_hidden=8, compute_dtype="float32")
+        task = train_task(5, N_TRAIN_TASKS, cfg.internal_density, base_hw=(12, 11),
+                          aux_hw=(30, 28), n_stations=40, n_targets=20)
+    dtypes = ("bfloat16", "float32") if size == "flagship" else ("float32",)
+    return {d: dataclasses.replace(cfg, compute_dtype=d) for d in dtypes}, task
+
+
+def _cpu_state(state, loss) -> dict:
+    return {"params": {k: v.cpu() for k, v in state.params.items()},
+            "mu": {k: v.cpu() for k, v in state.opt_state["mu"].items()},
+            "nu": {k: v.cpu() for k, v in state.opt_state["nu"].items()},
+            "count": state.opt_state["count"].cpu(), "loss": loss.detach().cpu()}
+
+
+def ddp_worker(out_dir: str, size: str) -> int:
+    """One rank of ``[ddp]``'s group, started by :func:`ddp_group` with the
+    rank in the JAX package's environment names: gloo on CUDA tensors, all
+    ranks on card 0. For each dtype: the summed gradient at the start, then
+    ``DDP_STEPS`` data-parallel steps of the batch-8 task (each timed), the
+    state after the first, whether every rank holds the same parameters and
+    Adam state after the last; then (f32) one step of the batch of 7 padded
+    to 8; the all-reduce of a gradient-sized buffer timed; launches, plain
+    SetConv calls and peak memory. Writes ``out_dir/rank{r}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    import_port()
+    from deepsensornz_tpu_torch.ops import _build, setconv, setconv_cuda
+    from deepsensornz_tpu_torch.parallel.mesh import make_mesh, mesh_device
+    from deepsensornz_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                           replicate_multihost)
+    from deepsensornz_tpu_torch.task.batching import pad_batch_to_multiple, take
+    from deepsensornz_tpu_torch.train.trainer import (init_state, make_train_step,
+                                                      shard_loss_and_grads)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    info = initialize_multihost(backend="gloo")
+    mesh = make_mesh(device_type="cuda")
+    dev = mesh_device(mesh)
+    cfgs, task = ddp_setting(size)
+    out = {"info": info, "device": str(dev)}
+    setconv_cuda.reset_launch_counts()
+    with deterministic_cudnn(), plain_calls_on_card(setconv) as plain:
+        for dtype, cfg in cfgs.items():
+            torch.cuda.reset_peak_memory_stats(dev)
+            model = build_model(cfg, task, seed=0, device=dev)
+            state = state0 = init_state(model)
+            loss0, grads = shard_loss_and_grads(model, task, mesh)
+            res = {"grads": {k: g.cpu() for k, g in grads.items()}, "loss0": loss0.cpu(),
+                   "step_ms": [], "step_s": []}
+            step = make_train_step(model, mesh=mesh)
+            for i in range(DDP_STEPS):
+                (state, loss), ms, wall = timed(lambda: step(state, task, TRAIN_LR))
+                res["step_ms"].append(ms)
+                res["step_s"].append(wall)
+                if i == 0:
+                    res["state1"] = _cpu_state(state, loss)
+            res["last_loss"] = float(loss)
+            res["peak"] = torch.cuda.max_memory_allocated(dev)
+            try:
+                replicate_multihost(state.params, mesh, check=True)
+                replicate_multihost(state.opt_state, mesh, check=True)
+                res["ranks_equal"] = True
+            except ValueError:
+                res["ranks_equal"] = False
+            out[dtype] = res
+            if dtype == "float32":
+                padded, _ = pad_batch_to_multiple(take(task, list(range(N_TRAIN_TASKS - 1))),
+                                                  mesh.size(0))
+                _, loss7 = step(state0, padded, TRAIN_LR)
+                out["loss7"] = float(loss7)
+            del model, state, state0, grads
+        out["counts"] = setconv_cuda.launch_counts()
+        out["plain"] = dict(plain)
+    n = sum(g.numel() for g in out[next(iter(cfgs))]["grads"].values()) + 1
+    buf = torch.zeros(n, device=dev)
+    times = []
+    for _ in range(1 + TIMING_REPS):
+        _, ms, _ = timed(lambda: dist.all_reduce(buf))
+        times.append(ms)
+    out["allreduce_ms"], out["allreduce_bytes"] = float(np.median(times[1:])), 4 * n
+    torch.save(out, Path(out_dir) / f"rank{info['process_index']}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_group(out_dir: Path, size: str, world: int = DDP_WORLD) -> list[dict]:
+    """``world`` :func:`ddp_worker` processes of this script on card 0 (one
+    free port, the JAX package's environment names); their results by rank.
+    Every process is stopped before this returns."""
+    import torch
+
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(world):
+            env = dict(__import__("os").environ, COORDINATOR_ADDRESS=f"localhost:{port}",
+                       NUM_PROCESSES=str(world), PROCESS_ID=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--ddp-worker", str(out_dir),
+                 size], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=DDP_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[ddp] rank {rank} exited with {p.returncode}:\n{log[-4000:]}")
+    return [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def summed_shards(model, task, dev, world: int = DDP_WORLD):
+    """One process's version of a ``world``-rank step's gradient: each
+    rank's rows over the whole batch's denominators, the rows' gradients
+    and losses summed as the all-reduce sums them. Returns (loss, grads)."""
+    import torch
+
+    from deepsensornz_tpu_torch.parallel.mesh import take_rows
+
+    den = model.loss_denominators(task.to(dev))
+    per = task.batch_size // world
+    loss, grads = None, None
+    names = [k for k, _ in model.named_parameters()]
+    for r in range(world):
+        part = model.loss(take_rows(task, per, r * per, dev), 1.0, den)
+        g = dict(zip(names, torch.autograd.grad(part, list(model.parameters()))))
+        loss = part.detach() if loss is None else loss + part.detach()
+        grads = g if grads is None else {k: grads[k] + g[k] for k in names}
+    return loss, grads
+
+
+def ddp_phase(dev, setconv_cuda, size: str = "flagship") -> dict:
+    """Phase 18: data-parallel training of the flagship in 2 processes on
+    the one card (gloo on CUDA tensors; NCCL refuses two ranks on one
+    device): a correctness check, not a scaling figure. Then one NCCL step
+    at world size 1. Returns the ranks' launch counts, summed."""
+    import torch
+    import torch.distributed as dist
+
+    from deepsensornz_tpu_torch.parallel.mesh import make_mesh
+    from deepsensornz_tpu_torch.parallel.multihost import initialize_multihost
+    from deepsensornz_tpu_torch.task.batching import take
+    from deepsensornz_tpu_torch.train.trainer import (CLIP_NORM, apply_gradients, init_state,
+                                                      make_train_step)
+
+    t_phase = time.perf_counter()
+    cfgs, task = ddp_setting(size)
+    ref = {}
+    with deterministic_cudnn():
+        for dtype, cfg in cfgs.items():
+            model = build_model(cfg, task, seed=0, device=dev)
+            state0 = init_state(model)
+            plain, plain_loss = make_train_step(model)(state0, task.to(dev), TRAIN_LR)
+            plain_grads = torch.autograd.grad(model.loss(task.to(dev)), list(model.parameters()))
+            loss, grads = summed_shards(model, task, dev)
+            summed, summed_loss = apply_gradients(state0, grads, loss, TRAIN_LR)
+            ref[dtype] = {"plain": _cpu_state(plain, plain_loss),
+                          "summed": _cpu_state(summed, summed_loss),
+                          "grads": {k: g.cpu() for k, g in grads.items()},
+                          "plain_grads": {k: g.cpu() for k, g in zip(grads, plain_grads)}}
+            if dtype == "float32":
+                _, loss7 = make_train_step(model)(
+                    state0, take(task, list(range(N_TRAIN_TASKS - 1))).to(dev), TRAIN_LR)
+                ref["loss7"] = float(loss7)
+            del model, state0, plain, summed, grads, plain_grads
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = ddp_group(Path(tmp), size)
+    group_s = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        say("ddp", f"rank {r} on {out['device']} ({DDP_WORLD} processes, gloo, one card: a "
+            f"correctness check, not a scaling figure): " + "; ".join(
+                f"{d} steps {', '.join(f'{m:.1f}' for m in out[d]['step_ms'])} ms (CUDA events), "
+                f"{', '.join(f'{s:.4f}' for s in out[d]['step_s'])} s wall, peak memory "
+                f"{out[d]['peak'] / 2**30:.2f} GiB"
+                for d in cfgs) + f"; all-reduce of {out['allreduce_bytes']} bytes "
+            f"{out['allreduce_ms']:.2f} ms (gloo through the host, median of {TIMING_REPS}); "
+            f"launches {out['counts']}; plain "
+            f"versions called on the card {out['plain']}")
+    bad = []
+    for dtype in cfgs:
+        want = ref[dtype]["summed"]
+        for r, out in enumerate(ranks):
+            got = out[dtype]
+            exact = {
+                "loss": torch.equal(got["state1"]["loss"], want["loss"]),
+                "grads": all(torch.equal(got["grads"][k], ref[dtype]["grads"][k])
+                             for k in want["params"]),
+                "params": all(torch.equal(got["state1"]["params"][k], want["params"][k])
+                              for k in want["params"]),
+                "adam": all(torch.equal(got["state1"][m][k], want[m][k])
+                            for m in ("mu", "nu") for k in want["params"])
+                and torch.equal(got["state1"]["count"], want["count"])}
+            ls = {k: float(got["grads"][k]) for k in got["grads"] if k.startswith("ls_")}
+            say("ddp", f"{dtype} rank {r} against the two shards summed in one process: "
+                f"bitwise {exact}; l-gradients {ls}; ranks equal after {DDP_STEPS} steps "
+                f"{got['ranks_equal']}")
+            if not all(exact.values()):
+                bad.append(f"{dtype} rank {r} differs from the summed shards: {exact}")
+            if not got["ranks_equal"]:
+                bad.append(f"{dtype}: the ranks' states differ after {DDP_STEPS} steps")
+        # against the plain single-process batch-8 step
+        plain, got = ref[dtype]["plain"], ranks[0][dtype]["state1"]
+        g, g8 = ref[dtype]["grads"], ref[dtype]["plain_grads"]
+        rel = abs(float(got["loss"]) - float(plain["loss"])) / abs(float(plain["loss"]))
+        diff = max(float((got["params"][k] - plain["params"][k]).abs().max()) for k in g)
+        off = {k: (got["params"][k] - plain["params"][k]).abs()
+               > DDP_RTOL * plain["params"][k].abs() + DDP_ATOL for k in g}
+        # Adam sees the gradient clipped to global norm CLIP_NORM
+        clip = min(1.0, CLIP_NORM / float(torch.sqrt(sum(torch.sum(v.double() ** 2)
+                                                         for v in g.values()))))
+        held = {k: (clip * g[k].abs() >= TRAIN_REF_STEP_MIN_GRAD)
+                & (g[k].abs() >= DDP_GRAD_MARGIN * (g[k] - g8[k]).abs()) for k in g}
+        n_off = sum(int(v.sum()) for v in off.values())
+        off_held = {k: int((off[k] & held[k]).sum()) for k in g if bool((off[k] & held[k]).any())}
+        grad_rel = max(float(((g[k] - g8[k]).abs() / (g8[k].abs().max() + 1e-30)).max())
+                       for k in g)
+        say("ddp", f"{dtype} against the plain batch-8 step: loss {float(got['loss']):.7f} vs "
+            f"{float(plain['loss']):.7f} (rel {rel:.2e}); gradients differ by at most "
+            f"{grad_rel:.2e} of each tensor's largest; largest parameter difference {diff:.3e}; "
+            f"elements outside rtol {DDP_RTOL} / atol {DDP_ATOL}: {n_off} of "
+            f"{sum(v.numel() for v in g.values())}, head_out's kernel "
+            f"{int(off['head_out.weight'].sum())}, where the gradient is well determined "
+            f"{sum(off_held.values())} (of {sum(int(v.sum()) for v in held.values())}; the clip "
+            f"scales it by {clip:.3e})")
+        if dtype == "float32":
+            if rel > DDP_RTOL:
+                bad.append(f"f32 loss rel {rel:.2e} from the plain step")
+            if bool(off["head_out.weight"].any()) or off_held:
+                bad.append(f"f32 parameters off the plain step: {off_held}, head_out "
+                           f"{int(off['head_out.weight'].sum())}")
+    rel7 = abs(ranks[0]["loss7"] - ref["loss7"]) / abs(ref["loss7"])
+    say("ddp", f"batch of 7 padded to 8 (rank 1 holds 3 tasks and a masked one): loss "
+        f"{ranks[0]['loss7']:.7f} / {ranks[1]['loss7']:.7f} vs one process's {ref['loss7']:.7f} "
+        f"(rel {rel7:.2e})")
+    if rel7 > DDP_RTOL or ranks[0]["loss7"] != ranks[1]["loss7"]:
+        bad.append(f"the padded batch's loss is off: rel {rel7:.2e}")
+    for r, out in enumerate(ranks):
+        n_runs = len(cfgs) * (1 + DDP_STEPS) + 1
+        for name in ("encode_offgrid", "encode_offgrid_grad"):
+            if out["counts"][name] < n_runs:
+                bad.append(f"rank {r} launched {name} {out['counts'][name]} times in "
+                           f"{n_runs} forward and backward passes")
+        if any(out["plain"].values()):
+            bad.append(f"rank {r} called a plain SetConv on the card: {out['plain']}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+    # NCCL at world size 1: the mesh step is the plain step, bitwise
+    cfg = next(iter(cfgs.values()))
+    with deterministic_cudnn():
+        model = build_model(cfg, task, seed=0, device=dev)
+        state0 = init_state(model)
+        batch = task.to(dev)
+        plain, plain_loss = make_train_step(model)(state0, batch, TRAIN_LR)
+        initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="nccl")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"the group runs {dist.get_backend()}, not nccl")
+            mesh = make_mesh()
+            nccl, nccl_loss = make_train_step(model, mesh=mesh)(state0, batch, TRAIN_LR)
+        finally:
+            dist.destroy_process_group()
+    same = torch.equal(nccl_loss, plain_loss) and all(
+        torch.equal(nccl.params[k], plain.params[k]) for k in plain.params)
+    say("ddp", f"NCCL at world size 1 on {mesh.device_type}: step bitwise equal to the plain "
+        f"step {same}; the group of {DDP_WORLD} {group_s:.1f} s wall, the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not same:
+        raise AssertionError("the NCCL world-size-1 step differs from the plain step")
+    return {k: sum(out["counts"][k] for out in ranks) for k in ranks[0]["counts"]}
+
+
+def remat_phase(dev, cfg, setconv_cuda) -> dict:
+    """Phase 19: the flagship batch-8 step with ``remat=False`` and with
+    each remat policy: one warm-up and ``REMAT_STEPS`` timed steps, peak
+    memory; losses and l-gradients against ``remat=False`` (cuDNN's
+    deterministic algorithms, so that only the policy differs). Returns the
+    launch counts."""
+    import torch
+
+    from deepsensornz_tpu_torch.train.trainer import init_state, make_train_step
+
+    task = train_task(20, N_TRAIN_TASKS, cfg.internal_density).to(dev)
+    variants = {"off": dataclasses.replace(cfg, remat=False)}
+    variants.update({str(p): dataclasses.replace(cfg, remat=True, remat_policy=p)
+                     for p in (None, "acts", "dots")})
+    res = {}
+    counts = dict.fromkeys(KERNELS, 0)
+    with deterministic_cudnn():
+        for name, vcfg in variants.items():
+            model = build_model(vcfg, task, seed=0, device=dev)
+            step = make_train_step(model)
+            state = init_state(model)
+            loss = model.loss(task)
+            ls_names = [k for k, _ in model.named_parameters() if k.startswith("ls_")]
+            ls_grads = torch.autograd.grad(loss, [dict(model.named_parameters())[k]
+                                                  for k in ls_names])
+            out = {"loss": float(loss.detach()), "ls": dict(zip(ls_names, map(float, ls_grads))),
+                   "ms": [], "s": [], "losses": []}
+            del loss, ls_grads
+            torch.cuda.synchronize()
+            setconv_cuda.reset_launch_counts()
+            for i in range(1 + REMAT_STEPS):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                (state, step_loss), ms, wall = timed(lambda: step(state, task, TRAIN_LR))
+                out["ms"].append(ms)
+                out["s"].append(wall)
+                out["losses"].append(float(step_loss))
+            out["peak"] = torch.cuda.max_memory_allocated(dev)
+            for k, v in setconv_cuda.launch_counts().items():
+                counts[k] += v
+            res[name] = out
+            say("remat", f"{name:>5}: median of {REMAT_STEPS} steps "
+                f"{float(np.median(out['ms'][1:])):.1f} ms (CUDA events), "
+                f"{float(np.median(out['s'][1:])):.4f} s wall (warm-up {out['ms'][0]:.1f} ms); "
+                f"peak memory {out['peak'] / 2**30:.2f} GiB; losses "
+                f"{', '.join(f'{v:.6f}' for v in out['losses'])}; l-gradients "
+                f"{', '.join(f'{k} {v:.6e}' for k, v in out['ls'].items())}")
+            del model, state, step
+            torch.cuda.empty_cache()
+    base = res["off"]
+    bad = []
+    for name, out in res.items():
+        exact = name != "acts"
+        rtol = 0.0 if exact else REMAT_ACTS_RTOL
+        worst = max(abs(out["ls"][k] - v) / abs(v) for k, v in base["ls"].items())
+        worst_loss = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], base["losses"]))
+        say("remat", f"{name}: largest relative difference from remat=False: l-gradients "
+            f"{worst:.3e}, step losses {worst_loss:.3e} (bound {rtol})")
+        if out["loss"] != base["loss"] or out["losses"][0] != base["losses"][0]:
+            bad.append(f"{name}: the forward's loss differs")
+        if worst > rtol or worst_loss > (0.0 if exact else REMAT_LOSS_RTOL):
+            bad.append(f"{name}: l-gradients {worst:.3e}, losses {worst_loss:.3e}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    for name in ("encode_offgrid", "encode_offgrid_grad"):
+        if counts[name] < len(variants) * (1 + REMAT_STEPS):
+            raise AssertionError(f"[remat] launched {name} {counts[name]} times")
+    return counts
+
+
+def resume_phase(dev, cfg, setconv, setconv_cuda) -> dict:
+    """Phase 20: ``Trainer.fit`` of the flagship in f32 for 3 epochs
+    straight, and for 2 epochs then resumed for the third from the
+    checkpoint's JAX-layout files alone (``params.msgpack`` and
+    ``opt_state.msgpack`` written by the port's codec; the ``.pt`` files
+    removed). Returns the launch counts of the resumed run."""
+    import torch
+
+    from deepsensornz_tpu_torch.train.checkpoint import load_checkpoint
+    from deepsensornz_tpu_torch.train.trainer import Trainer
+
+    fcfg = dataclasses.replace(cfg, compute_dtype="float32")
+    train = train_task(30, RESUME_TASKS, fcfg.internal_density)
+    val = train_task(31, N_TRAIN_TASKS, fcfg.internal_density)
+
+    def fit(n_epochs, **kw):
+        model = build_model(fcfg, train, seed=0, device=dev)
+        return Trainer(model, lr=TRAIN_LR).fit(train, val, n_epochs=n_epochs,
+                                               batch_size=N_TRAIN_TASKS, verbose=False, **kw)
+
+    with deterministic_cudnn(), tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        straight = fit(RESUME_EPOCHS)
+        straight_s = time.perf_counter() - t0
+        fit(RESUME_EPOCHS - 1, checkpoint_dir=tmp)
+        files = sorted(p.name for p in Path(tmp).iterdir())
+        for name in ("params.pt", "opt_state.pt"):
+            (Path(tmp) / name).unlink()
+        ck = load_checkpoint(tmp, map_location=dev)
+        setconv_cuda.reset_launch_counts()
+        with plain_calls_on_card(setconv) as plain:
+            t0 = time.perf_counter()
+            resumed = fit(RESUME_EPOCHS, resume_from=tmp)
+            resumed_s = time.perf_counter() - t0
+        counts = setconv_cuda.launch_counts()
+    a, b = straight["final_state"].params, resumed["final_state"].params
+    bitwise = all(torch.equal(a[k], b[k]) for k in a)
+    worst = max(float(((a[k] - b[k]).abs() / (a[k].abs() + 1e-30)).max()) for k in a)
+    say("resume", f"checkpoint after epoch {ck['metadata']['epoch']} (step "
+        f"{ck['metadata']['step']}, Adam count {int(ck['opt_state']['count'])}), files {files}, "
+        f"read from the msgpack files alone; straight {RESUME_EPOCHS} epochs {straight_s:.2f} s, "
+        f"resumed {resumed_s:.2f} s wall; train losses {straight['train_losses']} vs "
+        f"{resumed['train_losses']}, validation {straight['val_losses']} vs "
+        f"{resumed['val_losses']}; final parameters bitwise equal {bitwise} (largest relative "
+        f"difference {worst:.3e}); launches {counts}; plain versions called on the card "
+        f"{dict(plain)}")
+    for key in ("train_losses", "val_losses"):
+        if not np.allclose(resumed[key], straight[key], rtol=RESUME_RTOL, atol=0.0):
+            raise AssertionError(f"the resumed run's {key} differ from the straight run's")
+    if resumed["final_state"].step != straight["final_state"].step:
+        raise AssertionError("the resumed run took another number of steps")
+    for k in a:
+        if not torch.allclose(b[k], a[k], rtol=RESUME_RTOL, atol=RESUME_RTOL * float(
+                a[k].abs().max())):
+            raise AssertionError(f"the resumed run's {k} differs from the straight run's")
+    if "opt_state.msgpack" not in files or int(ck["opt_state"]["count"]) != ck["metadata"]["step"]:
+        raise AssertionError(f"the checkpoint's optimizer state did not come through: {files}")
+    if any(plain.values()) or counts["encode_offgrid_grad"] == 0:
+        raise AssertionError(f"[resume] launches {counts}, plain calls {dict(plain)}")
+    return counts
 
 
 def main() -> int:
@@ -2391,10 +2892,14 @@ def main() -> int:
     say("validate-reference", f"{time.perf_counter() - t0:.1f} s wall")
     train_reference(dev, setconv_cuda)
     cli_counts = cli_train_phase(dev, cfg, setconv, setconv_cuda)
+    ddp_counts = ddp_phase(dev, setconv_cuda)
+    remat_counts = remat_phase(dev, cfg, setconv_cuda)
+    resume_counts = resume_phase(dev, cfg, setconv, setconv_cuda)
 
     phases = {"serve": serve_counts, "service": service_counts, "sample-serve": sample_counts,
               "ar": ar_counts, "al": al_counts, "train": train_counts,
-              "pipeline": pipeline_counts, "validate": validate_counts, "cli-train": cli_counts}
+              "pipeline": pipeline_counts, "validate": validate_counts, "cli-train": cli_counts,
+              "ddp": ddp_counts, "remat": remat_counts, "resume": resume_counts}
     launches = {name: sum(c[name] for c in phases.values()) for name in KERNELS}
     say("launches", "; ".join(f"{k} {v}" for k, v in phases.items()))
     say("total", f"{time.perf_counter() - t_start:.1f} s wall, the kernels' build included")
@@ -2408,4 +2913,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(ddp_worker(*sys.argv[2:4]))
     sys.exit(main())

@@ -28,10 +28,9 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from deepsensornz_tpu_torch.models.likelihoods import get_likelihood
-from deepsensornz_tpu_torch.models.unet import UNet, lecun_normal_
+from deepsensornz_tpu_torch.models.unet import REMAT_POLICIES, UNet, lecun_normal_
 from deepsensornz_tpu_torch.ops import setconv_cuda
 from deepsensornz_tpu_torch.ops.grids import default_lengthscale
 from deepsensornz_tpu_torch.ops.setconv import setconv_decode_offgrid, setconv_encode_grid
@@ -42,9 +41,11 @@ from deepsensornz_tpu_torch.task.task import TaskBatch
 class ConvNPConfig:
     """Static model hyperparameters; every field of the JAX config, so a JAX
     ``metadata.json`` config loads. Fields that only steer TPU lowerings
-    (``downsample``, ``lane_pack``, ``use_pallas``) and ``remat_policy``
-    are accepted and change nothing: ``remat`` recomputes the whole U-Net
-    in the backward whatever the policy (per-level saving waits)."""
+    (``downsample``, ``lane_pack``, ``use_pallas``) are accepted and change
+    nothing. ``remat`` recomputes the U-Net in the backward, keeping what
+    ``remat_policy`` names (:meth:`..models.unet.UNet.raw_remat`): None
+    nothing, ``"acts"`` each level's output, ``"dots"`` the conv and
+    matmul outputs."""
 
     unet_channels: tuple = (64, 64, 64, 64)
     likelihood: str = "gnp"
@@ -127,6 +128,9 @@ class ConvNP(nn.Module):
         super().__init__()
         if cfg.mesh_axes is not None:
             raise NotImplementedError("mesh_axes (spatial sharding) is not ported")
+        if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                             "use None/'dots'/'acts'")
         self.cfg = cfg
         self.n_grids = len(grid_channels)
         self.n_points = len(point_channels)
@@ -200,10 +204,7 @@ class ConvNP(nn.Module):
         features as they are (their f32 widening holds the same values)."""
         h = self.encode(task).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
         if self.cfg.remat and torch.is_grad_enabled():
-            # the backward recomputes the U-Net instead of keeping its
-            # activations; the parameters it reads are the module's own, so
-            # the recomputation sees the values the forward saw
-            f = checkpoint(self.unet.raw, h, use_reentrant=False)
+            f = self.unet.raw_remat(h, self.cfg.remat_policy)
         else:
             f = self.unet.raw(h)
         return f.permute(0, 2, 3, 1)
@@ -251,22 +252,40 @@ class ConvNP(nn.Module):
             raw = _sigmoid_squash(raw, cfg.dim_yt)
         return raw
 
-    def loss(self, task: TaskBatch, anchor_scale=1.0) -> torch.Tensor:
+    def loss(self, task: TaskBatch, anchor_scale=1.0,
+             denominators: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Normalised NLL at ``task.xt`` plus ``anchor_weight() · anchor_scale``
         times the masked MSE of the predictive mean (a 0-d tensor).
         ``anchor_scale`` may change from call to call (an anchor decayed
-        over epochs)."""
+        over epochs).
+
+        ``denominators``: :meth:`loss_denominators` of the whole batch when
+        ``task`` is one shard of it. The NLL then divides by the whole
+        batch's count of valid tasks and the MSE by its count of valid
+        targets, so the shards' losses (and gradients) sum to the whole
+        batch's; averaging per-shard means would not, wherever the shards
+        hold different numbers of valid tasks."""
         raw = self(task)
         lik = self.cfg.make_likelihood()
-        out = lik.nll(raw, task.yt, task.yt_mask)
+        n_tasks = None if denominators is None else denominators[0]
+        out = lik.nll(raw, task.yt, task.yt_mask, n_tasks)
         anchor = self.cfg.anchor_weight()
         if anchor > 0.0:
             mean, _ = lik.mean_std(raw)
             m = task.yt_mask.float()[..., None]
             se = torch.square(mean - task.yt.float()) * m
-            mse = se.sum() / torch.clamp(m.sum() * mean.shape[-1], min=1.0)
+            n_targets = m.sum() if denominators is None else denominators[1]
+            mse = se.sum() / torch.clamp(n_targets * mean.shape[-1], min=1.0)
             out = out + anchor * anchor_scale * mse
         return out
+
+    @staticmethod
+    def loss_denominators(task: TaskBatch) -> torch.Tensor:
+        """(2,) float32: the tasks with a valid target and the valid
+        targets of ``task``; summed over shards, the whole batch's."""
+        with torch.no_grad():
+            m = task.yt_mask.float()
+            return torch.stack([(m.sum(-1) > 0).float().sum(), m.sum()])
 
 
 def _sigmoid_squash(raw: torch.Tensor, dy: int) -> torch.Tensor:

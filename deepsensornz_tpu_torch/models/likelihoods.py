@@ -9,7 +9,9 @@ each with ``num_params``, ``nll``, ``mean_std``, ``rescale_raw``,
 ``body_interval``. A head consumes a raw parameter block (..., M, K) from
 the ConvNP decoder, targets (..., M, dy) and a validity mask (..., M). NLLs
 are per-target normalised over valid targets, and a fully masked (padded)
-task contributes nothing. All math is float32, except :func:`betainc`,
+task contributes nothing; ``nll(..., n_tasks=)`` divides by a count of
+valid tasks given from outside (a data-parallel shard's, the whole batch's
+count). All math is float32, except :func:`betainc`,
 which runs its continued fraction in float64.
 
 Sampling takes an explicit ``torch.Generator`` on the device of ``raw``
@@ -43,6 +45,16 @@ def _inv_softplus(y: torch.Tensor) -> torch.Tensor:
     return torch.where(z < 20.0, torch.log(torch.expm1(z)), z)
 
 
+def _task_mean(per_task: torch.Tensor, n_valid: torch.Tensor, n_tasks=None) -> torch.Tensor:
+    """Σ of the per-task NLLs of the tasks with a valid target over the
+    number of such tasks: this batch's, or ``n_tasks`` (0-d) where the
+    batch is one shard of a larger one (the whole batch's count, so that the
+    shards' losses sum to the whole batch's)."""
+    has_valid = (n_valid > 0).float()
+    count = has_valid.sum() if n_tasks is None else n_tasks
+    return (per_task * has_valid).sum() / torch.clamp(count, min=1.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class Likelihood:
     """What every head shares: the masked per-task mean, the sampled CRPS
@@ -51,14 +63,14 @@ class Likelihood:
     dim_y: int = 1
     name: str = "base"
 
-    def _norm(self, pointwise_nll: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def _norm(self, pointwise_nll: torch.Tensor, mask: torch.Tensor,
+              n_tasks=None) -> torch.Tensor:
         # batch mean weighted by per-task validity: a fully masked (padded)
         # task contributes neither a constant nor a dilution
         m = mask.float()
         n_valid = m.sum(-1)
         per_task = (pointwise_nll * m).sum(-1) / torch.clamp(n_valid, min=1.0)
-        has_valid = (n_valid > 0).float()
-        return (per_task * has_valid).sum() / torch.clamp(has_valid.sum(), min=1.0)
+        return _task_mean(per_task, n_valid, n_tasks)
 
     def draw(self, raw, generator: torch.Generator, n: int) -> tuple:
         """The standard random draws behind ``n`` samples."""
@@ -108,11 +120,11 @@ class HeteroscedasticGaussian(Likelihood):
         sigma = _softplus(raw[..., self.dim_y: 2 * self.dim_y])
         return mu, sigma
 
-    def nll(self, raw, y, mask):
+    def nll(self, raw, y, mask, n_tasks=None):
         mu, sigma = self._split(raw)
         z = (y.float() - mu) / sigma
         point = 0.5 * (torch.square(z) + 2.0 * torch.log(sigma) + _LOG_2PI)
-        return self._norm(point.sum(-1), mask)
+        return self._norm(point.sum(-1), mask, n_tasks)
 
     def mean_std(self, raw):
         return self._split(raw)
@@ -172,7 +184,7 @@ class LowRankGaussian(Likelihood):
         mflat = m.expand(m.shape[:-1] + (self.dim_y,)).reshape(lead + (n,))
         return mu, var, fac, mflat
 
-    def nll(self, raw, y, mask):
+    def nll(self, raw, y, mask, n_tasks=None):
         mu, var, fac, mflat = self._flatten(raw, mask)
         yf = y.float().reshape(raw.shape[:-2] + (-1,)) * mflat
         r = (yf - mu) * mflat
@@ -208,9 +220,7 @@ class LowRankGaussian(Likelihood):
         # the raw count for the 2π constant, so a padded task adds exactly
         # zero; the batch mean is weighted by per-task validity (as _norm)
         nll = 0.5 * (quad + logdet + n_valid_raw * _LOG_2PI)
-        has_valid = (n_valid_raw > 0).float()
-        per_task = nll / torch.clamp(n_valid_raw, min=1.0)
-        return (per_task * has_valid).sum() / torch.clamp(has_valid.sum(), min=1.0)
+        return _task_mean(nll / torch.clamp(n_valid_raw, min=1.0), n_valid_raw, n_tasks)
 
     def mean_std(self, raw):
         mu, var, fac = self._split(raw)
@@ -268,7 +278,7 @@ class BernoulliGamma(Likelihood):
     def _split(self, raw):
         return torch.sigmoid(raw[..., 0]), _softplus(raw[..., 1]), _softplus(raw[..., 2])
 
-    def nll(self, raw, y, mask):
+    def nll(self, raw, y, mask, n_tasks=None):
         p, k, rate = self._split(raw)
         yv = y[..., 0].float()
         wet = yv > _EPS
@@ -278,7 +288,7 @@ class BernoulliGamma(Likelihood):
         log_p = torch.log(torch.clamp(p, _EPS, 1 - _EPS))
         log_1mp = torch.log(torch.clamp(1.0 - p, _EPS, 1 - _EPS))
         point = -torch.where(wet, log_p + log_gamma, log_1mp)
-        return self._norm(point, mask)
+        return self._norm(point, mask, n_tasks)
 
     def mean_std(self, raw):
         p, k, rate = self._split(raw)
@@ -339,7 +349,7 @@ class SpikesBeta(Likelihood):
         probs = torch.softmax(raw[..., :3], dim=-1)  # (p0, p1, p_body)
         return probs, _softplus(raw[..., 3]), _softplus(raw[..., 4])
 
-    def nll(self, raw, y, mask):
+    def nll(self, raw, y, mask, n_tasks=None):
         probs, alpha, beta = self._split(raw)
         yv = torch.clamp(y[..., 0].float(), 0.0, 1.0)
         at0 = yv < _EPS
@@ -351,7 +361,7 @@ class SpikesBeta(Likelihood):
         lp = torch.log(torch.clamp(probs, _EPS, 1.0))
         point = -torch.where(at0, lp[..., 0],
                              torch.where(at1, lp[..., 1], lp[..., 2] + log_beta_pdf))
-        return self._norm(point, mask)
+        return self._norm(point, mask, n_tasks)
 
     def mean_std(self, raw):
         probs, alpha, beta = self._split(raw)

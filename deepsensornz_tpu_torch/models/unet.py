@@ -25,12 +25,19 @@ without a copy.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+REMAT_POLICIES = (None, "acts", "dots")
+# what remat_policy="dots" keeps: the convolutions' and products' outputs
+_DOTS_SAVED = [torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+               torch.ops.aten.bmm.default]
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
@@ -136,7 +143,7 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.raw(x).float()
 
-    def raw(self, x: torch.Tensor) -> torch.Tensor:
+    def raw(self, x: torch.Tensor, inplace_bias: bool = True) -> torch.Tensor:
         """The forward pass with the output left in ``compute_dtype``: in
         bf16 its values are exactly those :meth:`forward` widens to f32."""
         x = self.stem(x.to(self.compute_dtype))
@@ -147,15 +154,64 @@ class UNet(nn.Module):
             x = getattr(self, f"down_{i}")(x)
         x = self.bottleneck(F.relu(x))
         for i in reversed(range(len(self.channels))):
-            x = F.relu(x)
-            if self.upsample == "nearest":
-                x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-            x = getattr(self, f"up_{i}")(x)
-            x = torch.cat([x, skips[i]], dim=1)
-            x = getattr(self, f"up_mix_{i}")(F.relu(x))
-        return self._head_channel_first(F.relu(x))
+            x = self._up(i, x, skips[i])
+        return self._head_channel_first(F.relu(x), inplace_bias)
 
-    def _head_channel_first(self, x: torch.Tensor) -> torch.Tensor:
+    def raw_remat(self, x: torch.Tensor, policy: Optional[str]) -> torch.Tensor:
+        """:meth:`raw` under rematerialisation: the backward recomputes what
+        the forward did not keep. ``policy`` says what it keeps, as the JAX
+        package's ``remat_policy`` does:
+
+        - None: nothing inside the U-Net (its input only);
+        - ``"acts"``: the tensors the JAX U-Net tags (``_tag``): each
+          ``down_i`` output, the bottleneck's and each ``up_mix_i`` output.
+          Each span between them is one checkpointed block; the stem, which
+          feeds the first block and the last up block, runs in both;
+        - ``"dots"``: the output of every convolution and matrix product;
+          the ReLUs, pads, casts and concatenations are recomputed. (JAX's
+          ``dots_with_no_batch_dims_saveable`` names ``dot_general`` only,
+          which the flax U-Net's convolutions are not.)
+
+        The parameters the recomputation reads are the module's own, so it
+        sees the values the forward saw."""
+        if policy is None:
+            return checkpoint(self.raw, x, use_reentrant=False)
+        if policy == "dots":
+            # the head's bias is added out of place: an in-place add would
+            # change the saved product
+            return checkpoint(functools.partial(self.raw, inplace_bias=False), x,
+                              use_reentrant=False,
+                              context_fn=functools.partial(
+                                  create_selective_checkpoint_contexts, _DOTS_SAVED))
+        if policy != "acts":
+            raise ValueError(f"unknown remat_policy {policy!r}; use None/'dots'/'acts'")
+
+        def block(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False)
+
+        def stem(h):
+            return F.relu(self.stem(h.to(self.compute_dtype)))
+
+        L = len(self.channels)
+        acts = [block(lambda h: self.down_0(stem(h)), x)]
+        for i in range(1, L):
+            acts.append(block(lambda d, i=i: getattr(self, f"down_{i}")(F.relu(d)), acts[-1]))
+        y = block(lambda d: self.bottleneck(F.relu(d)), acts[-1])
+        for i in reversed(range(1, L)):
+            y = block(lambda y, d, i=i: self._up(i, y, F.relu(d)), y, acts[i - 1])
+        y = block(lambda y, h: self._up(0, y, stem(h)), y, x)
+        return block(lambda m: self._head_channel_first(F.relu(m)), y)
+
+    def _up(self, i: int, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        """Level i's way up: ``up_i``, the skip concatenated, ``up_mix_i``."""
+        x = F.relu(x)
+        if self.upsample == "nearest":
+            x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        x = getattr(self, f"up_{i}")(x)
+        x = torch.cat([x, skip], dim=1)
+        return getattr(self, f"up_mix_{i}")(F.relu(x))
+
+    def _head_channel_first(self, x: torch.Tensor, inplace_bias: bool = True) -> torch.Tensor:
         """The 1×1 head as one batched product that writes channel-first
         memory (a contiguous (B, C, H, W)) from channels-last x without a
         transpose pass: the decode kernel reads the channel planes in place."""
@@ -163,5 +219,6 @@ class UNet(nn.Module):
         w = self.head.weight.to(x.dtype).flatten(1)          # (C, cin)
         xs = x.permute(0, 2, 3, 1).reshape(B, H * W, -1)     # a view when channels-last
         out = torch.matmul(w, xs.transpose(1, 2))            # (B, C, H·W)
-        out += self.head.bias.to(x.dtype)[:, None]
+        bias = self.head.bias.to(x.dtype)[:, None]
+        out = out.add_(bias) if inplace_bias else out + bias
         return out.view(B, -1, H, W)

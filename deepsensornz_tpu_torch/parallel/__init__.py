@@ -1,0 +1,13 @@
+"""Data parallelism over processes (counterpart of
+``deepsensornz_tpu/parallel``): a (data, spatial) ``DeviceMesh``, one
+process per GPU, each with its rows of every batch; the spatial partition
+of the internal grid is not ported (:mod:`.mesh`)."""
+
+from deepsensornz_tpu_torch.parallel.mesh import (  # noqa: F401
+    DATA_AXIS,
+    SPATIAL_AXIS,
+    make_mesh,
+    pad_batch_to_multiple,
+    shard_task,
+    task_shardings,
+)

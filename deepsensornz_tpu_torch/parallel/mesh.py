@@ -1,0 +1,124 @@
+"""The (data, spatial) device mesh and TaskBatch sharding for data-parallel
+training.
+
+Counterpart of ``deepsensornz_tpu/parallel/mesh.py``, in torch's idiom: one
+process per GPU, where JAX has one process drive every local device. The
+mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the
+default process group (:func:`..parallel.multihost.initialize_multihost`
+starts it), with dims ``("data", "spatial")``. A process holds only its own
+rows of a batch (:func:`shard_task`); the gradient sum over the data axis
+is an explicit all-reduce in ``train.trainer.make_train_step(mesh=...)``,
+where XLA inserts a psum.
+
+Not ported:
+
+- the spatial partition (``n_spatial > 1``): XLA SPMD writes the halo
+  exchange of the U-Net's convolutions itself; in torch it would be written
+  by hand. :func:`make_mesh` raises ``NotImplementedError``.
+- ``batch_spec`` and ``replicate``: they are ``PartitionSpec``\\ s, layouts
+  that ``jit`` applies to global arrays. A torch tensor lives in one
+  process, so they have no counterpart: :func:`shard_task` takes a rank's
+  rows, and ``multihost.replicate_multihost`` broadcasts rank 0's values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from deepsensornz_tpu_torch.task.batching import _map_batched, pad_batch_to_multiple  # noqa: F401
+from deepsensornz_tpu_torch.task.task import TaskBatch
+
+DATA_AXIS = "data"
+SPATIAL_AXIS = "spatial"
+
+
+def make_mesh(n_data: Optional[int] = None, n_spatial: int = 1,
+              device_type: Optional[str] = None) -> DeviceMesh:
+    """A (data, spatial) mesh over every rank of the default process group;
+    by default all of them on the data axis. ``device_type``: ``"cuda"`` or
+    ``"cpu"``; by default ``"cuda"`` under NCCL and ``"cpu"`` otherwise. On
+    ``"cuda"`` each rank's current device becomes ``cuda:(rank % count)``."""
+    if n_spatial != 1:
+        raise NotImplementedError(
+            f"n_spatial={n_spatial}: the spatial partition of the internal grid (the "
+            "U-Net's halo exchange, mesh_axes) is not ported; use n_spatial=1")
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call parallel.multihost.initialize_multihost() "
+                           "first")
+    world = dist.get_world_size()
+    n_data = world if n_data is None else int(n_data)
+    if n_data * n_spatial != world:
+        raise ValueError(f"a {n_data}x{n_spatial} mesh needs {n_data * n_spatial} ranks; "
+                         f"the process group has {world}")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (n_data, n_spatial),
+                            mesh_dim_names=(DATA_AXIS, SPATIAL_AXIS))
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """This rank's device on ``mesh``."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def data_group(mesh: DeviceMesh):
+    """The process group of the data axis (the gradient all-reduce's)."""
+    return mesh.get_group(DATA_AXIS)
+
+
+def data_shard(mesh: DeviceMesh) -> tuple[int, int]:
+    """(this rank's index on the data axis, the axis' size)."""
+    return mesh.get_local_rank(DATA_AXIS), mesh.size(0)
+
+
+def task_shardings(task: TaskBatch, mesh: DeviceMesh) -> dict[str, Optional[str]]:
+    """Each leaf of ``task`` by its field path (``"points.0.x"``): the mesh
+    axis its first dim is split over, ``DATA_AXIS`` for a batch-dimensioned
+    leaf and None for a replicated one (the grid coordinate vectors). The
+    JAX function decides by the leading dim's size; the port knows which
+    fields carry the batch."""
+    del mesh  # one layout on every mesh: the batch over the data axis
+    specs = {}
+
+    def leaves(obj, prefix):
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if isinstance(v, tuple):
+                for i, item in enumerate(v):
+                    leaves(item, f"{prefix}{f.name}.{i}.")
+            elif v is not None:
+                specs[prefix + f.name] = v
+
+    leaves(task, "")
+    batched = set()
+    _map_batched(task, lambda t: batched.add(id(t)) or t)
+    return {k: (DATA_AXIS if id(v) in batched else None) for k, v in specs.items()}
+
+
+def take_rows(task: TaskBatch, per: int, off: int, device) -> TaskBatch:
+    """Rows ``[off, off + per)`` of every batch-dimensioned leaf, and the
+    coordinate vectors, on ``device``: only those rows are copied there."""
+    rows = _map_batched(task, lambda t: t[off: off + per])
+    return rows.to(device)
+
+
+def shard_task(task: TaskBatch, mesh: DeviceMesh) -> TaskBatch:
+    """This rank's rows of a global TaskBatch on this rank's device, the
+    batch split evenly over the data axis in rank order (as a JAX
+    ``P("data")`` sharding splits it over the mesh's devices); the
+    coordinate vectors whole. The batch must divide the data axis
+    (:func:`pad_batch_to_multiple`)."""
+    index, n = data_shard(mesh)
+    b = task.batch_size
+    if b % n:
+        raise ValueError(f"batch {b} does not divide the data axis of {n} ranks; "
+                         "pad it with pad_batch_to_multiple")
+    per = b // n
+    return take_rows(task, per, index * per, mesh_device(mesh))

@@ -5,12 +5,12 @@ Counterpart of ``deepsensornz_tpu/train/checkpoint.py``. A checkpoint
 directory holds ``params.pt`` and ``opt_state.pt`` (``torch.save`` of
 plain dicts of CPU tensors, read back with ``weights_only=True``) and
 ``metadata.json`` in the JAX package's schema (``step`` plus the caller's
-metadata). Every file is written atomically. Where ``params.pt`` is absent,
-:func:`load_checkpoint` reads the JAX package's ``params.msgpack`` (with the
-codec in :mod:`.msgpack`, no msgpack package needed), and
-:func:`save_checkpoint` writes one on request, so a run trained on either
-side serves on the other. The JAX ``opt_state.msgpack`` is not read: a JAX
-optimizer state converts with :func:`opt_state_from_jax`.
+metadata). Every file is written atomically. Where ``params.pt`` or
+``opt_state.pt`` is absent, :func:`load_checkpoint` reads the JAX package's
+``params.msgpack`` or ``opt_state.msgpack`` (with the codec in
+:mod:`.msgpack`, no msgpack package needed), and :func:`save_checkpoint`
+writes both on request, so a run trained on either side serves on the
+other, and resumes there mid-training.
 
 :func:`params_from_jax` turns a flax ConvNP parameter tree (nested dicts of
 arrays, e.g. ``jax.device_get(params)``) into the port's ``state_dict``, and
@@ -24,7 +24,10 @@ arrays, e.g. ``jax.device_get(params)``) into the port's ``state_dict``, and
 - length-scales and biases unchanged.
 
 :func:`opt_state_from_jax` carries optax's Adam moments and count over, so
-a JAX run's mid-training state can step in the port.
+a JAX run's mid-training state can step in the port; :func:`opt_state_to_jax`
+writes the port's back in the layout flax serialises the JAX trainer's
+chain (``_adamw_core``: clip, Adam, weight decay, scale) in:
+``{"0": {}, "1": {"count", "mu", "nu"}, "2": {}, "3": {}}``.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from deepsensornz_tpu_torch.train import msgpack
 PARAMS_FILE = "params.pt"
 JAX_PARAMS_FILE = "params.msgpack"
 OPT_FILE = "opt_state.pt"
+JAX_OPT_FILE = "opt_state.msgpack"
 META_FILE = "metadata.json"
 
 
@@ -109,18 +113,36 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], upsample: str = "trans
 def opt_state_from_jax(opt_state, upsample: str = "transpose") -> dict:
     """The Adam part of an optax state (the ``ScaleByAdamState`` in the
     chain of ``deepsensornz_tpu.train.trainer._adamw_core``: ``count``,
-    ``mu``, ``nu``) → the port's optimizer state. The moments are laid out
-    as the parameters are (the layout maps are linear and elementwise)."""
-    def is_adam(s) -> bool:
-        return all(hasattr(s, a) for a in ("count", "mu", "nu"))
+    ``mu``, ``nu``) → the port's optimizer state. Takes optax's tuple of
+    states or its flax state dict (``{"0": ..., "1": {"count", "mu", "nu"},
+    ...}``, as ``opt_state.msgpack`` holds it). The moments are laid out as
+    the parameters are (the layout maps are linear and elementwise)."""
+    def fields(s):
+        if isinstance(s, Mapping):
+            return s if all(a in s for a in ("count", "mu", "nu")) else None
+        if all(hasattr(s, a) for a in ("count", "mu", "nu")):
+            return {a: getattr(s, a) for a in ("count", "mu", "nu")}
+        return None
 
-    adam = [opt_state] if is_adam(opt_state) else [s for s in opt_state if is_adam(s)]
+    parts = opt_state.values() if isinstance(opt_state, Mapping) else opt_state
+    adam = ([fields(opt_state)] if fields(opt_state) is not None
+            else [f for f in map(fields, parts) if f is not None])
     if len(adam) != 1:
         raise ValueError("expected exactly one Adam state (count, mu, nu) in the optax state")
     s = adam[0]
-    return {"count": torch.tensor(int(np.asarray(s.count)), dtype=torch.int32),
-            "mu": dict(params_from_jax(s.mu, upsample)),
-            "nu": dict(params_from_jax(s.nu, upsample))}
+    return {"count": torch.tensor(int(np.asarray(s["count"])), dtype=torch.int32),
+            "mu": dict(params_from_jax(s["mu"], upsample)),
+            "nu": dict(params_from_jax(s["nu"], upsample))}
+
+
+def opt_state_to_jax(opt_state: Mapping, upsample: str = "transpose") -> dict:
+    """The inverse of :func:`opt_state_from_jax`: the port's optimizer state
+    → the flax state dict of the JAX trainer's optax chain, numpy leaves."""
+    return {"0": {},
+            "1": {"count": np.asarray(int(opt_state["count"]), dtype=np.int32),
+                  "mu": params_to_jax(opt_state["mu"], upsample),
+                  "nu": params_to_jax(opt_state["nu"], upsample)},
+            "2": {}, "3": {}}
 
 
 def _atomic_write(path: str, data: bytes) -> None:
@@ -168,13 +190,17 @@ def save_checkpoint(ckpt_dir: str, params: Mapping[str, torch.Tensor],
                     flax_upsample: Optional[str] = None) -> None:
     """Write params (+ optimizer state) and metadata atomically into
     ``ckpt_dir``. With ``flax_upsample`` (the model's ``cfg.upsample``) the
-    params are also written as the JAX package's ``params.msgpack``."""
+    params and the optimizer state are also written as the JAX package's
+    ``params.msgpack`` and ``opt_state.msgpack``."""
     _atomic_write(os.path.join(ckpt_dir, PARAMS_FILE), _torch_bytes(dict(params)))
     if flax_upsample is not None:
         _atomic_write(os.path.join(ckpt_dir, JAX_PARAMS_FILE),
                       msgpack.packb(params_to_jax(params, flax_upsample)))
     if opt_state is not None:
         _atomic_write(os.path.join(ckpt_dir, OPT_FILE), _torch_bytes(opt_state))
+        if flax_upsample is not None:
+            _atomic_write(os.path.join(ckpt_dir, JAX_OPT_FILE),
+                          msgpack.packb(opt_state_to_jax(opt_state, flax_upsample)))
     meta = {"step": int(step), **(metadata or {})}
     _atomic_write(os.path.join(ckpt_dir, META_FILE),
                   json.dumps(meta, indent=2, cls=_JsonEncoder).encode())
@@ -198,18 +224,27 @@ def load_checkpoint(ckpt_dir: str, map_location="cpu",
     """{"params", and where present "opt_state" and "metadata"}, tensors on
     ``map_location``. The params come from ``params.pt``, or else from the
     JAX package's ``params.msgpack`` through :func:`params_from_jax` with
-    the model's ``upsample``."""
+    the model's ``upsample``; the optimizer state from ``opt_state.pt``, or
+    else from ``opt_state.msgpack`` through :func:`opt_state_from_jax`."""
+    def read_msgpack(name: str):
+        with open(os.path.join(ckpt_dir, name), "rb") as f:
+            return msgpack.unpackb(f.read())
+
     pt_path = os.path.join(ckpt_dir, PARAMS_FILE)
     if os.path.exists(pt_path):
         params = torch.load(pt_path, map_location=map_location, weights_only=True)
     else:
-        with open(os.path.join(ckpt_dir, JAX_PARAMS_FILE), "rb") as f:
-            tree = msgpack.unpackb(f.read())
-        params = {k: v.to(map_location) for k, v in params_from_jax(tree, upsample).items()}
+        params = {k: v.to(map_location) for k, v in
+                  params_from_jax(read_msgpack(JAX_PARAMS_FILE), upsample).items()}
     out: dict[str, Any] = {"params": params}
     opt_path = os.path.join(ckpt_dir, OPT_FILE)
     if os.path.exists(opt_path):
         out["opt_state"] = torch.load(opt_path, map_location=map_location, weights_only=True)
+    elif os.path.exists(os.path.join(ckpt_dir, JAX_OPT_FILE)):
+        opt = opt_state_from_jax(read_msgpack(JAX_OPT_FILE), upsample)
+        out["opt_state"] = {"count": opt["count"].to(map_location),
+                            **{m: {k: v.to(map_location) for k, v in opt[m].items()}
+                               for m in ("mu", "nu")}}
     meta_path = os.path.join(ckpt_dir, META_FILE)
     if os.path.exists(meta_path):
         with open(meta_path) as f:

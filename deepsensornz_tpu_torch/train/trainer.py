@@ -17,6 +17,12 @@ decay, then ``p ← p − lr·(adam + wd·p)``. A step whose loss or gradient
 norm is not finite changes neither the parameters nor any of the optimizer
 state, its count included; the decision is made on the device, so a step
 never waits for the host.
+
+Data parallel (``mesh=``, one process per GPU): each rank takes its rows
+of the global batch, divides its partial loss by the whole batch's counts
+of valid tasks and targets, and the ranks' gradients and losses are summed
+(not averaged: padding puts masked tasks on the last rank, so ranks differ
+in valid tasks) before the finite check, the clip and Adam.
 """
 
 from __future__ import annotations
@@ -28,7 +34,10 @@ from typing import Callable, Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from deepsensornz_tpu_torch.parallel.mesh import data_group, shard_task
+from deepsensornz_tpu_torch.parallel.multihost import replicate_multihost
 from deepsensornz_tpu_torch.task.batching import pad_batch_to_multiple, take
 from deepsensornz_tpu_torch.task.task import TaskBatch
 
@@ -111,49 +120,91 @@ def load_params(model: torch.nn.Module, params: Mapping[str, torch.Tensor]) -> N
             p.copy_(params[k])
 
 
+def apply_gradients(state: TrainState, grads: Mapping[str, torch.Tensor], loss: torch.Tensor,
+                    lr, weight_decay: float = 0.0, frozen_patterns: Sequence[str] = (),
+                    lengthscale_lr_mult: float = 1.0) -> tuple[TrainState, torch.Tensor]:
+    """The update of a train step from its loss and gradients (summed over
+    the ranks of a data-parallel step): applied only where the loss and
+    the gradients' global norm are finite, else the state passes through
+    with its optimizer count. Returns (new state, loss or NaN)."""
+    names = list(grads)
+    frozen = freeze_mask(names, frozen_patterns)
+    is_ls = freeze_mask(names, (r"/ls_",))
+    mult = float(lengthscale_lr_mult)
+    with torch.no_grad():
+        loss = loss.detach()
+        ok = torch.isfinite(loss) & torch.isfinite(global_norm(grads.values()))
+        updates, new_opt = adamw_update(grads, state.opt_state, state.params, weight_decay)
+        params = {}
+        for k in names:
+            p = state.params[k]
+            if frozen[k]:
+                params[k] = p
+                continue
+            u = updates[k] * lr
+            if is_ls[k] and mult != 1.0:
+                # amplify the Adam part only: mult·(−(a + wd·p)·lr)
+                # + (mult − 1)·wd·p·lr = −(mult·a + wd·p)·lr
+                u = u * mult + (mult - 1.0) * weight_decay * p * lr
+            params[k] = torch.where(ok, p + u, p)
+        opt = {"count": torch.where(ok, new_opt["count"], state.opt_state["count"])}
+        for m in ("mu", "nu"):
+            opt[m] = {k: torch.where(ok, new_opt[m][k], state.opt_state[m][k]) for k in names}
+        loss = torch.where(ok, loss, torch.full_like(loss, float("nan")))
+    return TrainState(params=params, opt_state=opt, step=state.step + 1), loss
+
+
+def shard_loss_and_grads(model: torch.nn.Module, task: TaskBatch, mesh,
+                         anchor_scale=1.0) -> tuple[torch.Tensor, dict]:
+    """The data-parallel loss and gradients of a global batch: this rank's
+    rows (``shard_task``) over the whole batch's denominators (all-reduced
+    first), then this rank's gradients and loss summed over the data axis in
+    one all-reduce of one flat buffer. Every rank returns the same
+    numbers: the whole batch's loss and gradients."""
+    group = data_group(mesh)
+    shard = shard_task(task, mesh)
+    den = model.loss_denominators(shard)
+    dist.all_reduce(den, group=group)
+    workspace = dict(model.named_parameters())
+    loss = model.loss(shard, anchor_scale, den)
+    grads = torch.autograd.grad(loss, list(workspace.values()))
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+    dist.all_reduce(flat, group=group)
+    parts = torch.split(flat, [g.numel() for g in grads] + [1])
+    return parts[-1][0], {k: v.view_as(g) for k, v, g in zip(workspace, parts, grads)}
+
+
 def make_train_step(model: torch.nn.Module, weight_decay: float = 0.0,
                     frozen_patterns: Sequence[str] = (),
-                    lengthscale_lr_mult: float = 1.0) -> Callable:
+                    lengthscale_lr_mult: float = 1.0, mesh=None) -> Callable:
     """Build the (state, task, lr, anchor_scale=1.0) → (state, loss) step.
 
     ``lengthscale_lr_mult`` scales the Adam step of the SetConv
     length-scales (``ls_*``) and not their weight-decay pull; at 0 the
     decay still applies (``frozen_patterns`` freezes for real). Frozen
     parameters keep their values but their Adam moments advance. The
-    returned loss is a 0-d device tensor, NaN for a skipped step."""
+    returned loss is a 0-d device tensor, NaN for a skipped step.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``) the step is data
+    parallel: every rank calls it with the same global batch (on the host
+    or the device), uploads its own rows, and the ranks' gradients are
+    summed (:func:`shard_loss_and_grads`) before the finite check, the
+    clip and Adam, so every rank applies or skips the same update and their
+    states stay bitwise equal. The batch must divide the data axis; the
+    step carries the mesh as ``step.mesh`` for :func:`train_epoch`."""
     workspace = dict(model.named_parameters())
-    names = list(workspace)
-    frozen = freeze_mask(names, frozen_patterns)
-    is_ls = freeze_mask(names, (r"/ls_",))
-    mult = float(lengthscale_lr_mult)
 
     def step(state: TrainState, task: TaskBatch, lr, anchor_scale=1.0):
         load_params(model, state.params)
-        loss = model.loss(task, anchor_scale)
-        grads = dict(zip(names, torch.autograd.grad(loss, [workspace[k] for k in names])))
-        with torch.no_grad():
-            loss = loss.detach()
-            ok = torch.isfinite(loss) & torch.isfinite(global_norm(grads.values()))
-            updates, new_opt = adamw_update(grads, state.opt_state, state.params, weight_decay)
-            params = {}
-            for k in names:
-                p = state.params[k]
-                if frozen[k]:
-                    params[k] = p
-                    continue
-                u = updates[k] * lr
-                if is_ls[k] and mult != 1.0:
-                    # amplify the Adam part only: mult·(−(a + wd·p)·lr)
-                    # + (mult − 1)·wd·p·lr = −(mult·a + wd·p)·lr
-                    u = u * mult + (mult - 1.0) * weight_decay * p * lr
-                params[k] = torch.where(ok, p + u, p)
-            opt = {"count": torch.where(ok, new_opt["count"], state.opt_state["count"])}
-            for m in ("mu", "nu"):
-                opt[m] = {k: torch.where(ok, new_opt[m][k], state.opt_state[m][k])
-                          for k in names}
-            loss = torch.where(ok, loss, torch.full_like(loss, float("nan")))
-        return TrainState(params=params, opt_state=opt, step=state.step + 1), loss
+        if mesh is None:
+            loss = model.loss(task, anchor_scale)
+            grads = dict(zip(workspace, torch.autograd.grad(loss, list(workspace.values()))))
+        else:
+            loss, grads = shard_loss_and_grads(model, task, mesh, anchor_scale)
+        return apply_gradients(state, grads, loss, lr, weight_decay, frozen_patterns,
+                               lengthscale_lr_mult)
 
+    step.mesh = mesh
     return step
 
 
@@ -163,28 +214,45 @@ def train_epoch(model, state: TrainState, tasks: TaskBatch, batch_size: int = 8,
     """One epoch over ``tasks``; returns (state, per-batch losses). The tail
     batch is padded with masked tasks, so every task is trained. Batches go
     to the device of the parameters; the losses stay there until the epoch
-    ends."""
+    ends. Under a data-parallel ``step_fn`` (``step_fn.mesh``) every rank
+    must draw the same permutation; each batch is padded to a multiple of
+    the data axis and stays on the host, and the step uploads this rank's
+    rows only."""
     step_fn = step_fn or make_train_step(model)
+    mesh = getattr(step_fn, "mesh", None)
     rng = rng or np.random.default_rng(0)
     device = next(iter(state.params.values())).device
     n = tasks.batch_size
     batch_size = min(batch_size, n)
+    n_data = 1 if mesh is None else mesh.size(0)
+    padded = -(-batch_size // n_data) * n_data
     idx = rng.permutation(n) if shuffle else np.arange(n)
     losses = []
     for sel in _batches(idx, batch_size):
-        batch = _take_padded(tasks, sel, batch_size).to(device)
+        batch = _take_padded(tasks, sel, padded)
+        if mesh is None:
+            batch = batch.to(device)
         state, loss = step_fn(state, batch, lr, anchor_scale)
         losses.append(loss)
     return state, torch.stack(losses).cpu().tolist()
 
 
-def make_eval_step(model) -> Callable:
-    """(params, task) → the validation loss, a 0-d device tensor."""
+def make_eval_step(model, mesh=None) -> Callable:
+    """(params, task) → the validation loss, a 0-d device tensor. With a
+    ``mesh`` each rank evaluates its rows of ``task`` (padded to a multiple
+    of the data axis) and every rank returns the whole batch's loss."""
 
     def eval_step(params, task: TaskBatch) -> torch.Tensor:
         load_params(model, params)
         with torch.no_grad():
-            return model.loss(task)
+            if mesh is None:
+                return model.loss(task)
+            shard = shard_task(pad_batch_to_multiple(task, mesh.size(0))[0], mesh)
+            den = model.loss_denominators(shard)
+            dist.all_reduce(den, group=data_group(mesh))
+            loss = model.loss(shard, 1.0, den)
+            dist.all_reduce(loss, group=data_group(mesh))
+            return loss
 
     return eval_step
 
@@ -260,15 +328,20 @@ class EarlyStopping:
 
 class Trainer:
     """The training loop with best-validation checkpointing. Runs on the
-    device of the model's parameters."""
+    device of the model's parameters. With a ``mesh`` it trains data
+    parallel: every rank runs ``fit`` with the same tasks, starts from rank
+    0's parameters, computes the same losses and so takes the same plateau
+    and early-stopping decisions; rank 0 alone writes checkpoints."""
 
     def __init__(self, model, lr: float = 5e-5, weight_decay: float = 0.0,
-                 frozen_patterns: Sequence[str] = (), lengthscale_lr_mult: float = 1.0):
+                 frozen_patterns: Sequence[str] = (), lengthscale_lr_mult: float = 1.0,
+                 mesh=None):
         self.model = model
         self.lr0 = lr
+        self.mesh = mesh
         self.train_step = make_train_step(model, weight_decay, frozen_patterns,
-                                          lengthscale_lr_mult=lengthscale_lr_mult)
-        self.eval_step = make_eval_step(model)
+                                          lengthscale_lr_mult=lengthscale_lr_mult, mesh=mesh)
+        self.eval_step = make_eval_step(model, mesh)
 
     def fit(self, train_tasks: TaskBatch, val_tasks: Optional[TaskBatch] = None,
             n_epochs: int = 30, batch_size: int = 8, params=None, plateau_patience: int = 5,
@@ -306,7 +379,10 @@ class Trainer:
             # carried them into the next epoch
             sched.load_state_dict(meta.get("sched", {}))
             stopper.load_state_dict(meta.get("stopper", {}))
-        if val_tasks is not None:
+        lead = self.mesh is None or dist.get_rank() == 0
+        if self.mesh is not None:
+            state = dataclasses.replace(state, params=replicate_multihost(state.params, self.mesh))
+        elif val_tasks is not None:
             val_tasks = val_tasks.to(device)
         batch_size = min(batch_size, train_tasks.batch_size)
         best_val = min(prev_val) if prev_val else np.inf
@@ -342,7 +418,7 @@ class Trainer:
             if is_best:
                 best_val = val_loss
                 best_params = _copy(state.params)
-                if checkpoint_dir is not None:
+                if checkpoint_dir is not None and lead:
                     save_checkpoint(
                         checkpoint_dir, state.params, opt_state=state.opt_state,
                         step=state.step,
@@ -351,7 +427,7 @@ class Trainer:
                                   "val_losses": val_losses, "best_val": best_val,
                                   "epoch": epoch, "sched": sched.state_dict(),
                                   "stopper": stopper.state_dict()})
-            if verbose:
+            if verbose and lead:
                 done = epoch - start_epoch + 1
                 eta = (time.time() - t_fit) / done * (n_epochs - epoch - 1)
                 print(f"epoch {epoch:3d}  train {train_loss:.4f}  val {val_loss:.4f}"

@@ -488,3 +488,35 @@ def test_greedy_placement_on_the_card_as_on_the_cpu(cuda, monkeypatch):
     setconv_cuda.reset_launch_counts()
     cs.al_reference(cuda)
     assert setconv_cuda.launch_counts()["encode_offgrid"] > 0
+
+
+def test_two_rank_gloo_step_equals_the_summed_shards(cuda, tmp_path, monkeypatch):
+    """A 2-rank data-parallel step on the card (gloo on CUDA tensors, both
+    ranks on card 0, the chip script's [ddp] worker at its small model):
+    each rank's summed gradient, its l-gradients among them, and its
+    updated parameters, Adam state and loss are bitwise those of one
+    process summing the two shards' gradients (computed with the whole
+    batch's denominators), with cuDNN's deterministic algorithms on both
+    sides; B1 and its l-gradient launched on each rank."""
+    import chip_smoke as cs
+    from deepsensornz_tpu_torch.train.trainer import apply_gradients, init_state
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfgs, task = cs.ddp_setting("small")
+    ranks = cs.ddp_group(tmp_path, "small")
+    with cs.deterministic_cudnn():
+        model = cs.build_model(cfgs["float32"], task, seed=0, device=cuda)
+        state0 = init_state(model)
+        loss, grads = cs.summed_shards(model, task, cuda)
+        want, want_loss = apply_gradients(state0, grads, loss, cs.TRAIN_LR)
+    for out in ranks:
+        got = out["float32"]
+        for k, g in grads.items():
+            assert torch.equal(got["grads"][k], g.cpu()), k
+        assert torch.equal(got["state1"]["loss"], want_loss.cpu())
+        for k, p in want.params.items():
+            assert torch.equal(got["state1"]["params"][k], p.cpu()), k
+            assert torch.equal(got["state1"]["mu"][k], want.opt_state["mu"][k].cpu()), k
+        assert got["ranks_equal"]
+        assert out["counts"]["encode_offgrid"] > 0 and out["counts"]["encode_offgrid_grad"] > 0
+        assert not any(out["plain"].values())

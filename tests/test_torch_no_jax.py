@@ -14,7 +14,9 @@ trip), train a run from data: synthetic data → preprocessing →
 such a run: ``Validate``'s metrics with a holdout, ``ValidateERA`` from raw
 fields and stations, and the quantised, chunked, threaded transfer, and
 (with h5py blocked too) place stations by active learning, time it with the
-perf harness, and train through the YAML CLI. The kernel module must also
+perf harness, and train through the YAML CLI; train data parallel on a
+one-process mesh with each remat policy and resume from the JAX
+checkpoint files. The kernel module must also
 import without ``nvcc``: the kernels are built at first use on the card.
 """
 
@@ -96,8 +98,8 @@ out = Trainer(model, lr=1e-3).fit(tasks, take(tasks, [4]), n_epochs=1, batch_siz
 assert len(out["train_losses"]) == 1 and math.isfinite(out["best_val"])
 ck = load_checkpoint({str(tmp_path)!r})
 assert ck["metadata"]["epoch"] == 0 and ck["metadata"]["step"] == 3
-assert sorted(os.listdir({str(tmp_path)!r})) == ["metadata.json", "opt_state.pt",
-                                                 "params.msgpack", "params.pt"]
+assert sorted(os.listdir({str(tmp_path)!r})) == ["metadata.json", "opt_state.msgpack",
+                                                 "opt_state.pt", "params.msgpack", "params.pt"]
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -105,6 +107,60 @@ print("trained")
 """)
     assert proc.returncode == 0, proc.stderr
     assert "trained" in proc.stdout
+
+
+def test_port_trains_data_parallel_with_remat_and_resumes_without_jax(tmp_path):
+    """``parallel.mesh``, ``parallel.multihost``, the remat policies and the
+    JAX optimizer state file with jax, pandas and msgpack blocked: a
+    one-process gloo group, a mesh step bitwise equal to the plain step,
+    each remat policy's loss, ``Trainer.fit`` on the mesh, and a resume
+    from ``params.msgpack`` and ``opt_state.msgpack`` alone."""
+    proc = _run(_BLOCKED_ALL + f"""
+import dataclasses, math, os
+import torch
+import chip_smoke as cs
+from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+from deepsensornz_tpu_torch.parallel import make_mesh, shard_task
+from deepsensornz_tpu_torch.parallel.multihost import initialize_multihost
+from deepsensornz_tpu_torch.task.batching import take
+from deepsensornz_tpu_torch.train.checkpoint import load_checkpoint
+from deepsensornz_tpu_torch.train.trainer import Trainer, init_state, make_train_step
+info = initialize_multihost(backend="gloo")
+assert info["process_count"] == 1
+mesh = make_mesh()
+cfg = ConvNPConfig(unet_channels=(8, 8), internal_density=30, rank=4, decoder_channels=8,
+                   mlp_hidden=8, compute_dtype="float32")
+tasks = cs.train_task(0, 5, cfg.internal_density, base_hw=(9, 8), aux_hw=(20, 18),
+                      n_stations=12, n_targets=10)
+model = cs.build_model(cfg, tasks, seed=0, device="cpu")
+batch = take(tasks, [0, 1])
+assert torch.equal(shard_task(batch, mesh).xt, batch.xt)
+s1, l1 = make_train_step(model, mesh=mesh)(init_state(model), batch, 1e-3)
+s2, l2 = make_train_step(model)(init_state(model), batch, 1e-3)
+assert torch.equal(l1, l2) and all(torch.equal(s1.params[k], s2.params[k]) for k in s2.params)
+for policy in (None, "acts", "dots"):
+    m = cs.build_model(dataclasses.replace(cfg, remat=True, remat_policy=policy), tasks,
+                       seed=0, device="cpu")
+    loss = m.loss(batch)
+    loss.backward()
+    assert torch.equal(loss.detach(), model.loss(batch).detach())
+ck_dir = {str(tmp_path)!r}
+out = Trainer(model, lr=1e-3, mesh=mesh).fit(tasks, take(tasks, [4]), n_epochs=1,
+                                             batch_size=2, checkpoint_dir=ck_dir, verbose=False)
+for name in ("params.pt", "opt_state.pt"):
+    os.unlink(os.path.join(ck_dir, name))
+ck = load_checkpoint(ck_dir)
+assert int(ck["opt_state"]["count"]) == ck["metadata"]["step"] == 3
+res = Trainer(model, lr=1e-3, mesh=mesh).fit(tasks, take(tasks, [4]), n_epochs=2,
+                                             batch_size=2, resume_from=ck_dir, verbose=False)
+assert res["final_state"].step == 6 and math.isfinite(res["train_losses"][-1])
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "flax", "optax", "deepsensornz_tpu", "pandas", "msgpack") and sys.modules[m] is not None)
+assert not leaked, leaked
+print("data parallel")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "data parallel" in proc.stdout
 
 
 def test_port_samples_without_jax():
@@ -232,8 +288,9 @@ tr.initialise_model(unet_channels=(8, 8), likelihood="cnp", compute_dtype="float
 run_dir = {str(tmp_path / "run")!r}
 res = tr.train_model(n_epochs=2, batch_size=4, lr=1e-3, model_dir=run_dir, verbose=False)
 assert np.isfinite(res["train_losses"]).all() and len(res["val_losses"]) == 2
-assert sorted(os.listdir(run_dir)) == ["data_processor.json", "metadata.json", "opt_state.pt",
-                                       "params.msgpack", "params.pt", "task_loader.pkl"]
+assert sorted(os.listdir(run_dir)) == ["data_processor.json", "metadata.json",
+                                       "opt_state.msgpack", "opt_state.pt", "params.msgpack",
+                                       "params.pt", "task_loader.pkl"]
 data = open(os.path.join(run_dir, "task_loader.pkl"), "rb").read()
 assert b"pandas" not in data and b"deepsensornz_tpu_torch.task.loader" in data
 run = load_run(run_dir, device="cpu")
@@ -344,8 +401,8 @@ with open(arg_path, "w") as f:
     yaml.safe_dump(args, f)
 run_dir = train_downscaling.main(["-arg_path", arg_path, "--device", "cpu"])
 assert sorted(__import__("os").listdir(run_dir)) == [
-    "args.yaml", "data_processor.json", "metadata.json", "opt_state.pt", "params.msgpack",
-    "params.pt", "task_loader.pkl"]
+    "args.yaml", "data_processor.json", "metadata.json", "opt_state.msgpack", "opt_state.pt",
+    "params.msgpack", "params.pt", "task_loader.pkl"]
 assert utils.validate_and_convert_args({{"n_epochs": "2"}}) == {{"n_epochs": 2}}
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "flax", "optax", "deepsensornz_tpu", "pandas", "msgpack", "h5py")

@@ -126,7 +126,10 @@ def test_loss_and_grads_match_jax(setting, likelihood, cfg_kw, anchor_scale):
 def test_remat_gives_identical_loss_and_grads(setting):
     jtasks, _ = setting
     _, jparams, model = _pair(jtasks, "gnp")
-    remat = ConvNP.from_task(dataclasses.replace(model.cfg, remat=True), _task(jtasks, [0]))
+    # the whole U-Net recomputed (remat_policy None); each policy against
+    # remat=False and against JAX: tests/test_torch_remat.py
+    remat = ConvNP.from_task(dataclasses.replace(model.cfg, remat=True, remat_policy=None),
+                             _task(jtasks, [0]))
     remat.load_state_dict(model.state_dict())
     task = _task(jtasks, np.arange(4))
     out = []
