@@ -199,12 +199,46 @@ Phases (one line each; the first failure exits non-zero):
              port's codec; the ``.pt`` files removed): losses and final
              parameters within rtol 1e-4 of the straight run, whether
              bitwise; launches, no plain SetConv.
+21. dp-serve - data-parallel serving of the flagship in 2 processes of this
+             script (``--dp-serve-worker``) on the one card, gloo on CUDA
+             tensors, cuDNN's deterministic algorithms, every rank passing
+             the whole batch and returning the whole result: one warm-up
+             and 3 timed ``predict_grid`` requests of [serve]'s 24-task
+             cycle (12 rows a rank), a 23-task request (padded to 24, the
+             pad row dropped), a 4-sample request, 48 tasks in int16 chunks
+             of 24, ``predict_points``, and ``ar_sample`` at
+             ``perf/ar_bench.py``'s shape (one warm-up, 3 timed). Every
+             result bitwise equal on both ranks and to one process running
+             the ranks' rows (the samples from the rows of the whole
+             batch's draws); in f32 a request and an AR sample against one
+             process's whole batch within JAX's bounds (2e-5 / 1e-6 and
+             5e-4 / 1e-5); the bf16 differences reported. Per rank: each
+             request's wall and CUDA-event time, its gathers' time and
+             bytes, B1/B2 launches (once per grid request and chunk, B1 8
+             times per AR sample), no plain SetConv, peak memory. Then
+             ``replicate_multihost(mesh=None, check=True)`` and a request on
+             a one-process NCCL group, bitwise the plain path.
+22. wrf    - the WRF base at the flagship width, without files: a synthetic
+             4 km curvilinear WRF run over the NZ extent (2-D lat/lon,
+             sheared and perturbed; two 24-hour cycles of hourly T2) ->
+             ``WRFSource.regrid_to`` onto the 2780x2600 DEM coarsened x5
+             (the Delaunay build timed, then a fresh source reading the
+             ``.npz`` weights, bitwise the same) -> ``PreprocessForDownscaling``
+             (``base="wrf"``, 512 synthetic stations) -> ``Train`` on the
+             card, 2 epochs at batch 8 with ``fit_std_scale`` ->
+             ``ValidateWRF.predict`` of one cycle from a source whose
+             ``load`` reads the run in memory. Stage times, losses,
+             ``std_scale``, launches (B1 and its l-gradient in training, B1
+             and B2 once in ``ValidateWRF``), no plain SetConv; B1 and B2
+             against their plain versions on the ``ValidateWRF`` task and
+             B1's l-gradient against float64 on a training batch, outside
+             the counts.
 
 The first lines also say whether scipy (with its version), pandas, PyYAML
 and matplotlib import. The last two lines are a JSON object of per-kernel
 results (its launch counts are those of the main-path phases: serve,
 service, sample-serve, ar, al, train, pipeline, validate, cli-train, ddp
-(both ranks), remat and resume) and the
+(both ranks), remat, resume, dp-serve (both ranks) and wrf) and the
 ``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy,
 scipy and the standard library.
 """
@@ -337,6 +371,17 @@ REMAT_ACTS_RTOL, REMAT_LOSS_RTOL = 1e-2, 1e-3
 # [resume]: 16 tasks (2 steps an epoch), 3 epochs; the f32 tolerance of the
 # pipeline's losses (tests/test_torch_pipeline.py)
 RESUME_TASKS, RESUME_EPOCHS, RESUME_RTOL = 16, 3, 1e-4
+# [dp-serve]: two ranks on the one card; a 23-task batch (padded to 24) and
+# 48 tasks in chunks of 24; against one process's whole batch in f32, JAX's
+# bounds for its data-parallel forward (tests/test_parallel.py:231-234) and
+# AR chain (:249-250)
+DPS_VAR = "temperature_station"
+DPS_WORLD, DPS_TIMEOUT = 2, 300
+DPS_PAD_TASKS, DPS_CHUNK_TASKS = 23, 48
+DPS_RTOL, DPS_ATOL, DPS_AR_RTOL, DPS_AR_ATOL = 2e-5, 1e-6, 5e-4, 1e-5
+# [wrf]: a 4 km curvilinear grid over the NZ extent widened by 0.3 degrees,
+# two 24-hour cycles, regridded onto the DEM coarsened x5 (0.025 degrees)
+WRF_KM, WRF_PAD, WRF_CYCLES, WRF_COARSEN = 4.0, 0.3, 2, 5
 
 KERNELS = {
     "encode_offgrid": ("deepsensornz_tpu_torch/csrc/setconv_encode.cu",
@@ -560,6 +605,16 @@ def train_task(seed: int, n_tasks: int, density: float, base_hw=(139, 130),
         yt=t(rng.normal(size=(n_tasks, n_targets, 1)).astype(np.float32)),
         yt_mask=torch.ones(n_tasks, n_targets),
         yt_aux=t(rng.normal(size=(n_tasks, n_targets, 1)).astype(np.float32)))
+
+
+def flagship_config():
+    """``bench.py``'s flagship ConvNP: U-Net (64,)x4, k = 5, gnp rank 64,
+    density 500 (the 608x608 grid), decoder and MLP 64, a bf16 U-Net."""
+    from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+
+    return ConvNPConfig(unet_channels=(64, 64, 64, 64), likelihood="gnp", internal_density=500,
+                        rank=64, decoder_channels=64, mlp_hidden=64, kernel_size=5,
+                        compute_dtype="bfloat16")
 
 
 def build_model(cfg, task, seed: int, device):
@@ -2360,9 +2415,7 @@ def ddp_setting(size: str):
     from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
 
     if size == "flagship":
-        cfg = ConvNPConfig(unet_channels=(64, 64, 64, 64), likelihood="gnp",
-                           internal_density=500, rank=64, decoder_channels=64, mlp_hidden=64,
-                           kernel_size=5, compute_dtype="bfloat16")
+        cfg = flagship_config()
         task = train_task(20, N_TRAIN_TASKS, cfg.internal_density)
     else:
         cfg = ConvNPConfig(unet_channels=(8, 8), likelihood="gnp", internal_density=40,
@@ -2463,10 +2516,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def ddp_group(out_dir: Path, size: str, world: int = DDP_WORLD) -> list[dict]:
-    """``world`` :func:`ddp_worker` processes of this script on card 0 (one
-    free port, the JAX package's environment names); their results by rank.
-    Every process is stopped before this returns."""
+def worker_command(flag: str, out_dir: Path, size: str) -> list[str]:
+    """The command of one rank: this script with a worker flag."""
+    return [sys.executable, str(Path(__file__).resolve()), flag, str(out_dir), size]
+
+
+def worker_group(flag: str, out_dir: Path, size: str, world: int, timeout: float) -> list[dict]:
+    """``world`` ranks of this script (``flag``) on card 0, one free port,
+    the rank in the JAX package's environment names; their results
+    (``out_dir/rank{r}.pt``) by rank. Every process is stopped before this
+    returns."""
     import torch
 
     port = free_port()
@@ -2475,10 +2534,10 @@ def ddp_group(out_dir: Path, size: str, world: int = DDP_WORLD) -> list[dict]:
         for rank in range(world):
             env = dict(__import__("os").environ, COORDINATOR_ADDRESS=f"localhost:{port}",
                        NUM_PROCESSES=str(world), PROCESS_ID=str(rank))
-            procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "--ddp-worker", str(out_dir),
-                 size], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs = [p.communicate(timeout=DDP_TIMEOUT)[0] for p in procs]
+            procs.append(subprocess.Popen(worker_command(flag, out_dir, size), env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2486,9 +2545,15 @@ def ddp_group(out_dir: Path, size: str, world: int = DDP_WORLD) -> list[dict]:
                 p.communicate()
     for rank, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
-            raise AssertionError(f"[ddp] rank {rank} exited with {p.returncode}:\n{log[-4000:]}")
+            raise AssertionError(f"{flag} rank {rank} exited with {p.returncode}:\n"
+                                 f"{log[-4000:]}")
     return [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
+
+
+def ddp_group(out_dir: Path, size: str, world: int = DDP_WORLD) -> list[dict]:
+    """``world`` :func:`ddp_worker` processes of this script on card 0."""
+    return worker_group("--ddp-worker", out_dir, size, world, DDP_TIMEOUT)
 
 
 def summed_shards(model, task, dev, world: int = DDP_WORLD):
@@ -2787,6 +2852,594 @@ def resume_phase(dev, cfg, setconv, setconv_cuda) -> dict:
     return counts
 
 
+def dp_serve_setting(size: str):
+    """``[dp-serve]``'s configs (the flagship in bf16 and the same in f32,
+    or the card test's small f32 model), processor, grid, aux and tasks:
+    ``N_REQUESTS`` 24-task serving cycles, 48 tasks for the chunked
+    request, and 24 tasks of 512 station targets with one aux channel
+    (``perf/ar_bench.py``'s AR shape)."""
+    from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+
+    dp = make_processor(DPS_VAR)
+    if size == "flagship":
+        cfg = flagship_config()
+        hw, kw, tkw = TARGET_HW, {}, {}
+    else:
+        cfg = ConvNPConfig(unet_channels=(8, 8), likelihood="gnp", internal_density=40,
+                           rank=4, decoder_channels=8, mlp_hidden=8, compute_dtype="float32")
+        hw = (30, 28)
+        kw = dict(base_hw=(12, 11), aux_hw=hw, n_stations=40)
+        tkw = dict(kw, n_targets=20)
+    dem, aux = target_fields(dp, hw, seed=0)
+    d = cfg.internal_density
+    tasks = {"cycle": [cycle_task(70 + i, N_TASKS, d, **kw) for i in range(N_REQUESTS)],
+             "chunked": cycle_task(74, DPS_CHUNK_TASKS, d, **kw),
+             "ar": train_task(75, N_TASKS, d, **tkw)}
+    dtypes = ("bfloat16", "float32") if size == "flagship" else ("float32",)
+    return ({t: dataclasses.replace(cfg, compute_dtype=t) for t in dtypes}, dp, dem, aux, tasks)
+
+
+class GatherTimer:
+    """Stands in for ``gather_rows`` in the serving module: each call's
+    CUDA-event time and the bytes it brings to this rank."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, t, mesh, dim=0):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(t, mesh, dim)
+        end.record()
+        end.synchronize()
+        self.calls.append((start.elapsed_time(end), out.numel() * out.element_size()))
+        return out
+
+    def take(self) -> tuple[float, int]:
+        """(ms, bytes) of the calls since the last take."""
+        ms, nbytes = sum(c[0] for c in self.calls), sum(c[1] for c in self.calls)
+        self.calls = []
+        return ms, nbytes
+
+
+def dp_serve_worker(out_dir: str, size: str) -> int:
+    """One rank of ``[dp-serve]``'s group, started by :func:`worker_group`:
+    gloo on CUDA tensors, every rank on card 0, cuDNN's deterministic
+    algorithms. With the first dtype's model: one warm-up and
+    ``N_REQUESTS`` timed 24-task ``predict_grid`` requests on the data
+    mesh, a 23-task request (padded to 24), a 4-sample request, 48 tasks in
+    int16 chunks of 24, ``predict_points`` and ``ar_sample`` (one warm-up,
+    ``AR_REPS`` timed); with the f32 model one grid request and one AR
+    sample. Each request's wall and CUDA-event time, its gathers' time and
+    bytes, its launches; the peak memory and the plain SetConv calls on the
+    card. Writes ``out_dir/rank{r}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    import_port()
+    from deepsensornz_tpu_torch.infer import ar
+    from deepsensornz_tpu_torch.infer import predict as predict_mod
+    from deepsensornz_tpu_torch.ops import _build, setconv, setconv_cuda
+    from deepsensornz_tpu_torch.parallel.mesh import make_mesh, mesh_device
+    from deepsensornz_tpu_torch.parallel.multihost import initialize_multihost
+    from deepsensornz_tpu_torch.task.batching import take
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    info = initialize_multihost(backend="gloo")
+    mesh = make_mesh(device_type="cuda")
+    dev = mesh_device(mesh)
+    cfgs, dp, dem, aux, tasks = dp_serve_setting(size)
+    cycle, ar_task = tasks["cycle"], tasks["ar"]
+    n_blocks = ar.block_geometry(ar_task.xt.shape[1], AR_BLOCKS)[1]
+    gathers = predict_mod.gather_rows = ar.gather_rows = GatherTimer(predict_mod.gather_rows)
+    out = {"info": info, "device": str(dev), "requests": []}
+
+    def request(name, fn):
+        """One timed call: its result, and its times, gathers and launches
+        recorded under ``name``."""
+        gathers.take()
+        setconv_cuda.reset_launch_counts()
+        res, ms, wall = timed(fn)
+        g_ms, g_bytes = gathers.take()
+        out["requests"].append({"name": name, "ms": ms, "s": wall, "gather_ms": g_ms,
+                                "gather_bytes": g_bytes,
+                                "counts": setconv_cuda.launch_counts()})
+        return res
+
+    first = next(iter(cfgs))
+    with deterministic_cudnn(), plain_calls_on_card(setconv) as plain:
+        for dtype, cfg in cfgs.items():
+            torch.cuda.reset_peak_memory_stats(dev)
+            model = build_model(cfg, cycle[0], seed=0, device=dev)
+            pred = predict_mod.Predictor(model, dp, DPS_VAR)
+            grid = {}
+            for i, task in enumerate([cycle[0]] + (list(cycle) if dtype == first else [])):
+                name = f"{dtype} grid {i}" if i else f"{dtype} grid warm-up"
+                grid[i] = request(name, lambda: pred.predict_grid(
+                    task, dem, aux_at_targets=aux, mesh=mesh))
+            res = {"grid": {k: grid[max(grid)][k].data for k in ("mean", "std")}}
+            gen = torch.Generator(device=dev)
+            if dtype == first:
+                pad = request(f"{dtype} {DPS_PAD_TASKS} tasks", lambda: pred.predict_grid(
+                    take(cycle[0], list(range(DPS_PAD_TASKS))), dem, aux_at_targets=aux,
+                    mesh=mesh))
+                res["pad"] = {k: pad[k].data for k in ("mean", "std")}
+                res["samples"] = request(f"{dtype} {N_SAMPLES} samples", lambda: pred.predict_grid(
+                    cycle[0], dem, aux_at_targets=aux, n_samples=N_SAMPLES, seed=SAMPLE_SEED,
+                    mesh=mesh))["samples"].data
+                chunked = predict_mod.Predictor(model, dp, DPS_VAR, batch_chunk=N_TASKS,
+                                                transfer_dtype="int16")
+                big = request(f"{dtype} {DPS_CHUNK_TASKS} tasks int16 chunks of {N_TASKS}",
+                              lambda: chunked.predict_grid(tasks["chunked"], dem,
+                                                           aux_at_targets=aux, mesh=mesh))
+                res["int16"] = {k: big[k].data for k in ("mean", "std")}
+                res["points"] = request(f"{dtype} points", lambda: pred.predict_points(
+                    ar_task, mesh=mesh))
+                for i in range(1 + AR_REPS):
+                    gen.manual_seed(i)
+                    smp = request(f"{dtype} ar_sample {i}" if i else f"{dtype} ar_sample warm-up",
+                                  lambda: ar.ar_sample(model, ar_task, n_samples=1,
+                                                       n_blocks=AR_BLOCKS, generator=gen,
+                                                       mesh=mesh))
+                res["ar"], res["ar_seed"] = smp, AR_REPS
+            else:
+                gen.manual_seed(0)
+                res["ar"] = request(f"{dtype} ar_sample", lambda: ar.ar_sample(
+                    model, ar_task, n_samples=1, n_blocks=AR_BLOCKS, generator=gen, mesh=mesh))
+                res["ar_seed"] = 0
+            res["peak"] = torch.cuda.max_memory_allocated(dev)
+            out[dtype] = res
+            del model, pred
+        out["plain"] = dict(plain)
+    out["n_blocks"] = n_blocks
+    torch.save(out, Path(out_dir) / f"rank{info['process_index']}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def shard_rows(n: int, world: int = DPS_WORLD) -> list[list[int]]:
+    """Each rank's task indices of an ``n``-task batch padded to a multiple
+    of ``world`` by repeating the last task (``pad_batch_to_multiple``)."""
+    per = -(-n // world)
+    idx = list(range(n)) + [n - 1] * (per * world - n)
+    return [idx[r * per:(r + 1) * per] for r in range(world)]
+
+
+class RowDraws:
+    """A likelihood whose samples use rows [start, start + rows) of the
+    draws for a ``batch``-task batch: what a rank keeps of the whole
+    batch's draws, made in one process."""
+
+    def __init__(self, lik, start: int, batch: int):
+        self.lik, self.start, self.batch = lik, start, batch
+
+    def __getattr__(self, name):
+        return getattr(self.lik, name)
+
+    def sample(self, raw, generator, n):
+        like = raw[:1].expand((self.batch,) + raw.shape[1:])
+        draws = self.lik.draw(like, generator, n)
+        return self.lik.transform(raw, tuple(d[:, self.start:self.start + raw.shape[0]]
+                                             for d in draws))
+
+
+def two_shard_reference(model, dp, dem, aux, tasks, dev) -> dict:
+    """One process's version of ``[dp-serve]``'s first-dtype results: each
+    request run on each rank's rows (12-row forwards, as the ranks run
+    them) and concatenated; the samples from the rows of the whole batch's
+    draws (:class:`RowDraws`); the int16 chunks as 12-row requests."""
+    from deepsensornz_tpu_torch.infer.predict import Predictor
+    from deepsensornz_tpu_torch.task.batching import take
+
+    pred = Predictor(model, dp, DPS_VAR)
+
+    def grid(task, n, **kw):
+        parts = [pred.predict_grid(take(task, rows), dem, aux_at_targets=aux, **kw)
+                 for rows in shard_rows(n)]
+        return {k: np.concatenate([p[k].data for p in parts])[:n] for k in ("mean", "std")}
+
+    ref = {"grid": grid(tasks["cycle"][-1], N_TASKS),
+           "pad": grid(take(tasks["cycle"][0], list(range(DPS_PAD_TASKS))), DPS_PAD_TASKS)}
+    lik, parts = pred.likelihood, []
+    for r, rows in enumerate(shard_rows(N_TASKS)):
+        pred.likelihood = RowDraws(lik, r * len(rows), N_TASKS)
+        parts.append(pred.predict_grid(take(tasks["cycle"][0], rows), dem, aux_at_targets=aux,
+                                       n_samples=N_SAMPLES, seed=SAMPLE_SEED)["samples"].data)
+    pred.likelihood = lik
+    ref["samples"] = np.concatenate(parts, axis=1)
+    q = Predictor(model, dp, DPS_VAR, transfer_dtype="int16")
+    per = N_TASKS // DPS_WORLD
+    parts = [q.predict_grid(take(tasks["chunked"], list(range(o, o + per))), dem,
+                            aux_at_targets=aux) for o in range(0, DPS_CHUNK_TASKS, per)]
+    ref["int16"] = {k: np.concatenate([p[k].data for p in parts]) for k in ("mean", "std")}
+    parts = [pred.predict_points(take(tasks["ar"], rows)) for rows in shard_rows(N_TASKS)]
+    ref["points"] = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return ref
+
+
+def same_arrays(a, b) -> bool:
+    """Bitwise equality of two arrays (NaN where NaN) or of two dicts of
+    them."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_arrays(a[k], b[k]) for k in a)
+    return a.shape == b.shape and np.array_equal(a, b, equal_nan=True)
+
+
+def within(got, ref, rtol: float, atol: float) -> tuple[float, bool]:
+    """(largest |got - ref|, whether |got - ref| <= rtol*|ref| + atol
+    everywhere)."""
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+    return float(err.max()), bool((err <= rtol * np.abs(ref) + atol).all())
+
+
+def dp_serve_group(out_dir: Path, size: str) -> list[dict]:
+    return worker_group("--dp-serve-worker", out_dir, size, DPS_WORLD, DPS_TIMEOUT)
+
+
+def dp_serve_phase(dev, setconv_cuda, size: str = "flagship") -> dict:
+    """Phase 21: data-parallel serving in 2 processes on the one card (gloo
+    on CUDA tensors): every rank's results bitwise equal to one process
+    running the ranks' rows (:func:`two_shard_reference`) and to each
+    other; f32 against one process's whole batch within JAX's bounds;
+    launches per rank. Then ``replicate_multihost(mesh=None, check=True)``
+    and a request on a one-process NCCL group, bitwise the plain path.
+    Returns the ranks' launch counts, summed."""
+    import torch
+    import torch.distributed as dist
+
+    from deepsensornz_tpu_torch.infer import ar
+    from deepsensornz_tpu_torch.infer.predict import Predictor
+    from deepsensornz_tpu_torch.parallel.mesh import make_mesh
+    from deepsensornz_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                           replicate_multihost)
+
+    t_phase = time.perf_counter()
+    cfgs, dp, dem, aux, tasks = dp_serve_setting(size)
+    first = next(iter(cfgs))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = dp_serve_group(Path(tmp), size)
+    group_s = time.perf_counter() - t0
+    bad = []
+    for r, out in enumerate(ranks):
+        per_name = "; ".join(
+            f"{q['name']} {q['ms']:.1f} ms (CUDA events), {q['s']:.4f} s wall, gathers "
+            f"{q['gather_ms']:.2f} ms for {q['gather_bytes']} bytes, launches "
+            f"{q['counts']['encode_offgrid']}/{q['counts']['decode_grid']} (B1/B2)"
+            for q in out["requests"])
+        say("dp-serve", f"rank {r} on {out['device']} ({DPS_WORLD} processes, gloo, one card: "
+            f"a correctness check, not a scaling figure): {per_name}; peak memory "
+            + ", ".join(f"{d} {out[d]['peak'] / 2**30:.2f} GiB" for d in cfgs)
+            + f"; plain versions called on the card {out['plain']}")
+        for q in out["requests"]:
+            want = ((out["n_blocks"], 0) if "ar_sample" in q["name"]
+                    else (2, 2) if "chunks" in q["name"]
+                    else (1, 0) if "points" in q["name"] else (1, 1))
+            got = (q["counts"]["encode_offgrid"], q["counts"]["decode_grid"])
+            if got != want:
+                bad.append(f"rank {r} {q['name']} launched B1/B2 {got}, not {want}")
+        if any(out["plain"].values()):
+            bad.append(f"rank {r} called a plain SetConv on the card: {out['plain']}")
+        timed_grid = [q for q in out["requests"] if q["name"].startswith(f"{first} grid ")
+                      and "warm" not in q["name"]]
+        timed_ar = [q for q in out["requests"] if q["name"].startswith(f"{first} ar_sample ")
+                    and "warm" not in q["name"]]
+        say("dp-serve", f"rank {r} medians: {len(timed_grid)} grid requests "
+            f"{float(np.median([q['ms'] for q in timed_grid])):.1f} ms (CUDA events), "
+            f"{float(np.median([q['s'] for q in timed_grid])):.4f} s wall, gathers "
+            f"{float(np.median([q['gather_ms'] for q in timed_grid])):.2f} ms; {len(timed_ar)} "
+            f"ar_sample calls {float(np.median([q['ms'] for q in timed_ar])):.1f} ms, "
+            f"{float(np.median([q['s'] for q in timed_ar])):.4f} s wall")
+
+    with deterministic_cudnn():
+        model = build_model(cfgs[first], tasks["cycle"][0], seed=0, device=dev)
+        ref = two_shard_reference(model, dp, dem, aux, tasks, dev)
+        gen = torch.Generator(device=dev).manual_seed(ranks[0][first]["ar_seed"])
+        one_ar = ar.ar_sample(model, tasks["ar"], n_samples=1, n_blocks=AR_BLOCKS,
+                              generator=gen)
+        one = Predictor(model, dp, DPS_VAR).predict_grid(tasks["cycle"][-1], dem,
+                                                         aux_at_targets=aux)
+    for r, out in enumerate(ranks):
+        got = out[first]
+        exact = {k: same_arrays(got[k], ref[k]) for k in ref}
+        exact["pad rows dropped"] = got["pad"]["mean"].shape[0] == DPS_PAD_TASKS
+        exact["ranks equal"] = all(same_arrays(got[k], ranks[0][first][k])
+                                   for k in ("grid", "pad", "samples", "int16", "points", "ar"))
+        say("dp-serve", f"{first} rank {r} against one process running the {DPS_WORLD} ranks' "
+            f"rows: bitwise {exact}")
+        if not all(exact.values()):
+            bad.append(f"{first} rank {r} differs from the two-shard process: {exact}")
+    land = ~np.isnan(dem.data)
+    diff = max(float(np.nanmax(np.abs(ranks[0][first]["grid"][k] - one[k].data)))
+               for k in ("mean", "std"))
+    ar_diff = float(np.abs(ranks[0][first]["ar"] - one_ar).max())
+    say("dp-serve", f"{first} against one process's {N_TASKS}-task request: largest difference "
+        f"{diff:.3e} (mean/std); ar_sample with the same generator: {ar_diff:.3e}; sample mean "
+        f"{ranks[0][first]['samples'][..., land].mean():.4f}")
+    if "float32" in cfgs and first != "float32":
+        with deterministic_cudnn():
+            model32 = build_model(cfgs["float32"], tasks["cycle"][0], seed=0, device=dev)
+            one32 = Predictor(model32, dp, DPS_VAR).predict_grid(tasks["cycle"][0], dem,
+                                                                 aux_at_targets=aux)
+            gen.manual_seed(0)
+            one32_ar = ar.ar_sample(model32, tasks["ar"], n_samples=1, n_blocks=AR_BLOCKS,
+                                    generator=gen)
+        for r, out in enumerate(ranks):
+            grid = {k: within(out["float32"]["grid"][k][:, land], one32[k].data[:, land],
+                              DPS_RTOL, DPS_ATOL) for k in ("mean", "std")}
+            ar_err = within(out["float32"]["ar"], one32_ar, DPS_AR_RTOL, DPS_AR_ATOL)
+            say("dp-serve", f"float32 rank {r} against one process's {N_TASKS}-task request: "
+                + ", ".join(f"{k} largest difference {v[0]:.3e}" for k, v in grid.items())
+                + f" (rtol {DPS_RTOL}, atol {DPS_ATOL}); ar_sample with the same generator "
+                f"{ar_err[0]:.3e} (rtol {DPS_AR_RTOL}, atol {DPS_AR_ATOL})")
+            if not all(v[1] for v in grid.values()) or not ar_err[1]:
+                bad.append(f"float32 rank {r} outside JAX's bounds: grid {grid}, AR {ar_err}")
+        del model32
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+    # C2: replicate_multihost(mesh=None, check=True) and a request on a
+    # one-process NCCL group: the flag and the gathers on the card
+    with deterministic_cudnn():
+        plain = Predictor(model, dp, DPS_VAR).predict_grid(tasks["cycle"][0], dem,
+                                                           aux_at_targets=aux)
+        initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="nccl")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"the group runs {dist.get_backend()}, not nccl")
+            params = model.state_dict()
+            rep = replicate_multihost(params, mesh=None, check=True)
+            mesh = make_mesh()
+            nccl = Predictor(model, dp, DPS_VAR).predict_grid(tasks["cycle"][0], dem,
+                                                              aux_at_targets=aux, mesh=mesh)
+        finally:
+            dist.destroy_process_group()
+    same = {"replicate": all(torch.equal(rep[k], v) for k, v in params.items()),
+            "grid": all(np.array_equal(nccl[k].data, plain[k].data, equal_nan=True)
+                        for k in ("mean", "std"))}
+    say("dp-serve", f"NCCL at world size 1 on {mesh.device_type}: replicate_multihost(mesh=None, "
+        f"check=True) and a {N_TASKS}-task request on the mesh bitwise the plain path {same}; "
+        f"the group of {DPS_WORLD} {group_s:.1f} s wall, the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not all(same.values()):
+        raise AssertionError(f"the NCCL world-size-1 path differs from the plain path: {same}")
+    del model
+    torch.cuda.empty_cache()
+    counts = dict.fromkeys(ranks[0]["requests"][0]["counts"], 0)
+    for out in ranks:
+        for q in out["requests"]:
+            for k, v in q["counts"].items():
+                counts[k] += v
+    return counts
+
+
+def wrf_run(seed: int = 0):
+    """A synthetic WRF run in memory: a curvilinear grid of ``WRF_KM`` km
+    over config's NZ extent widened by ``WRF_PAD`` degrees (its size worked
+    out from the extent), sheared and smoothly perturbed so that it is
+    truly curvilinear, and ``WRF_CYCLES`` midnight cycles of hourly T2 in
+    kelvin. Returns (lat2d, lon2d, {init: [(valid time, (ny, nx) float32)]})."""
+    from datetime import datetime, timedelta
+
+    from deepsensornz_tpu_torch.config import EXTENTS
+    from deepsensornz_tpu_torch.data.sources.wrf import WRFSource
+
+    e = EXTENTS["all"]
+    dlat = WRF_KM / 111.32
+    dlon = WRF_KM / (111.32 * np.cos(np.radians(0.5 * (e["minlat"] + e["maxlat"]))))
+    ny = int(np.ceil((e["maxlat"] - e["minlat"] + 2 * WRF_PAD) / dlat)) + 1
+    nx = int(np.ceil((e["maxlon"] - e["minlon"] + 2 * WRF_PAD) / dlon)) + 1
+    u, v = np.meshgrid(np.linspace(0, 1, ny), np.linspace(0, 1, nx), indexing="ij")
+    lat2d = (e["minlat"] - WRF_PAD + (ny - 1) * dlat * u + 0.1 * (v - 0.5)
+             + 0.02 * np.sin(6 * np.pi * v) * np.sin(2 * np.pi * u))
+    lon2d = (e["minlon"] - WRF_PAD + (nx - 1) * dlon * v + 0.1 * (u - 0.5)
+             + 0.02 * np.cos(4 * np.pi * u) * np.sin(np.pi * v))
+    rng = np.random.default_rng(seed)
+    pattern = 6.0 * np.sin(3 * u + 1.0) * np.cos(4 * v - 0.5) - 8.0 * u
+    cycles = {}
+    for c in range(WRF_CYCLES):
+        init = datetime(2024, 1, 1) + timedelta(days=c)
+        cycles[init] = [
+            (np.datetime64(valid, "s"),
+             (288.0 + pattern + 3.0 * np.sin(2 * np.pi * (valid.hour - 15) / 24)
+              + 0.5 * rng.standard_normal((ny, nx))).astype(np.float32))
+            for valid in WRFSource.cycle_hours(init)]
+    return lat2d, lon2d, cycles
+
+
+def memory_wrf_source(lat2d, lon2d, cycles, weights_dir):
+    """The port's ``WRFSource`` whose ``load`` reads the cycles in memory
+    (the GPU host may have no h5py) and builds its Fields as ``load`` builds
+    them from files; ``regrid_to`` is the port's own. Returns the source
+    and each cycle's file names."""
+    from deepsensornz_tpu_torch import config
+    from deepsensornz_tpu_torch.data.grid import Field
+    from deepsensornz_tpu_torch.data.sources.wrf import WRFSource
+
+    class MemoryWRF(WRFSource):
+        def load(self, filepaths, variables):
+            out = {}
+            for var in variables:
+                fld = Field(np.stack([hours[p][1] for p in filepaths]), ("time", "y", "x"),
+                            {"time": np.asarray([hours[p][0] for p in filepaths],
+                                                "datetime64[s]")},
+                            config.VAR_WRF[var]["var_name"], {"curvilinear": 1})
+                fld.attrs["lat2d"], fld.attrs["lon2d"] = lat2d, lon2d
+                out[var] = fld
+            return out
+
+    src = MemoryWRF("wrf", weights_dir=weights_dir)
+    files = {init: [src.filename_for(init, valid.astype(object)) for valid, _ in members]
+             for init, members in cycles.items()}
+    hours = {path: member for init, members in cycles.items()
+             for path, member in zip(files[init], members)}
+    return src, files
+
+
+def wrf_phase(dev, cfg, setconv, setconv_cuda) -> tuple[dict, dict]:
+    """Phase 22: the WRF base at the flagship width. A synthetic WRF run in
+    memory (:func:`wrf_run`) -> ``WRFSource.regrid_to`` onto the DEM
+    coarsened x``WRF_COARSEN`` (Delaunay on the first call; a fresh source
+    reading the ``.npz`` weights on the second) -> ``PreprocessForDownscaling``
+    with ``base="wrf"`` -> ``Train`` at ``cfg``'s width, 2 epochs at batch 8,
+    ``fit_std_scale`` -> ``ValidateWRF.predict`` of one 24-hour cycle. Stage
+    times and launches; B1 and B2 against their plain versions on the
+    ``ValidateWRF`` task and B1's l-gradient against float64 on a training
+    batch, outside the counts. Returns the launch counts and each kernel's
+    largest error."""
+    import torch
+
+    from deepsensornz_tpu_torch.data.synthetic import synthetic_dem, synthetic_stations
+    from deepsensornz_tpu_torch.pipeline import train as ptrain
+    from deepsensornz_tpu_torch.pipeline.preprocess import PreprocessForDownscaling
+    from deepsensornz_tpu_torch.pipeline.validate import ValidateWRF
+    from deepsensornz_tpu_torch.task.batching import take
+    from deepsensornz_tpu_torch.train import trainer
+
+    t_phase = t0 = time.perf_counter()
+    lat2d, lon2d, cycles = wrf_run()
+    dem = synthetic_dem(*PIPELINE_DEM_HW, seed=0)
+    gen_s = time.perf_counter() - t0
+    errs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, files = memory_wrf_source(lat2d, lon2d, cycles, str(Path(tmp) / "weights"))
+        paths = [p for ps in files.values() for p in ps]
+        target = dem.coarsen(WRF_COARSEN)
+        lat, lon = target.coords["latitude"], target.coords["longitude"]
+        fields = src.load(paths, ["temperature"])
+        t0 = time.perf_counter()
+        regridded = src.regrid_to(fields["temperature"], lat, lon)
+        build_s = time.perf_counter() - t0
+        fresh, _ = memory_wrf_source(lat2d, lon2d, cycles, str(Path(tmp) / "weights"))
+        t0 = time.perf_counter()
+        again = fresh.regrid_to(fields["temperature"], lat, lon)
+        reuse_s = time.perf_counter() - t0
+        valid = np.isfinite(regridded.data[0])
+        say("wrf", f"synthetic run: a {lat2d.shape[0]}x{lat2d.shape[1]} curvilinear "
+            f"{WRF_KM:g} km grid ({lat2d.size} points), {WRF_CYCLES} cycles of "
+            f"{len(next(iter(cycles.values())))} hourly fields, DEM {dem.shape}: {gen_s:.3f} s; "
+            f"regrid_to {target.shape}: Delaunay and weights {build_s:.3f} s, a fresh source "
+            f"reading the .npz weights {reuse_s:.3f} s ({sorted(__import__('os').listdir(Path(tmp) / 'weights'))}), "
+            f"bitwise equal {np.array_equal(regridded.data, again.data, equal_nan=True)}, "
+            f"{100 * valid.mean():.2f} % of cells inside the WRF grid")
+        if not np.array_equal(regridded.data, again.data, equal_nan=True):
+            raise AssertionError("the regrid from the .npz weights differs from the first")
+        if valid.mean() < 0.99:
+            raise AssertionError(f"the WRF grid covers {100 * valid.mean():.2f} % of the target")
+        celsius = regridded.copy(regridded.data - 273.15)
+        stations = synthetic_stations(celsius, dem, n_stations=N_STATIONS, seed=2)
+
+        t0 = time.perf_counter()
+        bundle = PreprocessForDownscaling("temperature", base="wrf").run_processing_sequence(
+            dem, fields, stations, highres_factor=DEM_FACTOR, lowres_factor=50,
+            coarsen_factor=WRF_COARSEN, wrf_source=src, include_time_of_year=True)
+        pre_s = time.perf_counter() - t0
+        t2m = bundle["raw"]["base"]["t2m"]
+        say("wrf", f"preprocess_wrf (coarsen {WRF_COARSEN}) and the sequence {pre_s:.3f} s: base "
+            f"{t2m.shape} in degC (land mean {np.nanmean(t2m.data):.3f}), {len(stations)} "
+            f"station rows")
+        if not np.array_equal(t2m.data, (regridded.data - np.float32(273.15)), equal_nan=True):
+            raise AssertionError("the WRF base is not the regridded field in degC")
+
+        t0 = time.perf_counter()
+        tr = ptrain.Train(bundle)
+        tl = tr.setup_task_loader(internal_density=cfg.internal_density)
+        setup_s = time.perf_counter() - t0
+        if (len(tl.x1g), len(tl.x2g)) != (608, 608):
+            raise AssertionError("the WRF run's internal grid is not the flagship's 608x608")
+        tr.initialise_model(unet_channels=cfg.unet_channels, likelihood=cfg.likelihood,
+                            rank=cfg.rank, decoder_channels=cfg.decoder_channels,
+                            mlp_hidden=cfg.mlp_hidden)
+        tr.create_tasks = Timed(tr.create_tasks)
+        run_dir = Path(tmp) / "run"
+        targets = {"epoch": (trainer, "train_epoch"), "fit_std_scale": (ptrain, "fit_std_scale")}
+        with stage_timers(targets) as timers, plain_calls_on_card(setconv) as plain:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            setconv_cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = tr.train_model(n_epochs=PIPELINE_EPOCHS, batch_size=N_TRAIN_TASKS,
+                                 model_dir=str(run_dir), verbose=False)
+            train_s = time.perf_counter() - t0
+            train_counts = setconv_cuda.launch_counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+            plain_train = dict(plain)
+        wall = {k: [c["wall_s"] for c in t.calls] for k, t in timers.items()}
+        say("wrf", f"Train: loader set-up {setup_s:.3f} s (internal grid {len(tl.x1g)}x"
+            f"{len(tl.x2g)}, point capacity {tl.point_capacity}, {len(tr.task_times())} hourly "
+            f"times); train_model {train_s:.3f} s wall: epochs "
+            f"{', '.join(f'{t:.3f}' for t in wall['epoch'])} s, fit_std_scale "
+            f"{sum(wall['fit_std_scale']):.3f} s; losses {out['train_losses']} / "
+            f"{out['val_losses']}; std_scale {out.get('std_scale')}; peak memory "
+            f"{peak / 2**30:.2f} GiB; launches {train_counts}; plain versions called on the "
+            f"card {plain_train}")
+        losses = out["train_losses"] + out["val_losses"]
+        if len(out["train_losses"]) != PIPELINE_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f"WRF training losses {losses}")
+        lo, hi = STD_SCALE_RANGE
+        if not lo <= out.get("std_scale", np.nan) <= hi:
+            raise AssertionError(f"std_scale {out.get('std_scale')} outside [{lo}, {hi}]")
+        batch = take(tr.create_tasks.calls[0]["out"], list(range(N_TRAIN_TASKS))).to(dev)
+        errs["encode_offgrid_grad"], grad_args = grad_check(
+            "wrf", "train batch", tr.model.lengthscale("ls_points_0").detach(), batch,
+            seed=N_TRAIN_TASKS)
+        del grad_args, tr, out, batch
+
+        v = ValidateWRF(str(run_dir), dem, coarsen_factor=WRF_COARSEN)
+        seen = []
+        predict_grid = Timed(v.predictor.predict_grid, cuda_events=True)
+
+        def keep_task(task, *args, **kwargs):
+            seen.append(task)
+            return predict_grid(task, *args, **kwargs)
+
+        v.predictor.predict_grid = keep_task
+        src.load, src.regrid_to = Timed(src.load), Timed(src.regrid_to)
+        init = next(iter(files))
+        with plain_calls_on_card(setconv) as plain:
+            setconv_cuda.reset_launch_counts()
+            pred, ms, wall_s = timed(lambda: v.predict(files[init], src, station_df=stations))
+            val_counts = setconv_cuda.launch_counts()
+            plain_val = dict(plain)
+        split = {k: t.calls[-1]["wall_s"] for k, t in (("load", src.load),
+                                                        ("regrid_to", src.regrid_to),
+                                                        ("predict_grid", predict_grid))}
+        sea = np.isnan(v.pred_grid.data)
+        mean = pred["mean"].data
+        say("wrf", f"ValidateWRF.predict of the {init:%Y-%m-%d} cycle ({len(files[init])} "
+            f"times) on {v.pred_grid.shape}: {ms:.1f} ms (CUDA events), {wall_s:.3f} s wall = "
+            f"load {split['load']:.4f} + regrid_to {split['regrid_to']:.4f} + predict_grid "
+            f"{split['predict_grid']:.4f} s ({predict_grid.calls[-1]['ms']:.1f} ms CUDA events) "
+            f"+ rest (normalise, swap, loader) "
+            f"{wall_s - sum(split.values()):.4f} s; land mean {np.nanmean(mean):.4f}; launches "
+            f"{val_counts}; plain versions called on the card {plain_val}")
+        if mean.shape != (len(files[init]),) + v.pred_grid.shape or not np.isfinite(
+                mean[:, ~sea]).all() or not np.isnan(mean[:, sea]).all():
+            raise AssertionError("ValidateWRF's mean is not finite on land and NaN on sea")
+        if val_counts["encode_offgrid"] != 1 or val_counts["decode_grid"] != 1:
+            raise AssertionError(f"ValidateWRF.predict launched {val_counts}, not B1 and B2 once")
+        task = seen[-1].to(dev)
+        errs["encode_offgrid"] = encode_check(v.predictor.model, task, "wrf",
+                                              "the ValidateWRF task")
+        errs["decode_grid"] = decode_check(v.predictor.model, task, v.run["data_processor"],
+                                           v.pred_grid, "wrf")
+        del v, pred, task, seen
+    say("wrf", f"the phase {time.perf_counter() - t_phase:.1f} s wall")
+    for name in ("encode_offgrid", "encode_offgrid_grad"):
+        if train_counts[name] == 0:
+            raise AssertionError(f"WRF training did not launch {name}")
+    if any(plain_train.values()) or any(plain_val.values()):
+        raise AssertionError("a plain SetConv ran on the card in the WRF phase")
+    torch.cuda.empty_cache()
+    return {k: train_counts[k] + val_counts[k] for k in train_counts}, errs
+
+
 def main() -> int:
     import torch
 
@@ -2796,7 +3449,6 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 1
     import_port()
-    from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
     from deepsensornz_tpu_torch.infer.predict import Predictor
     from deepsensornz_tpu_torch.ops import _build, setconv, setconv_cuda
 
@@ -2835,9 +3487,7 @@ def main() -> int:
     target_var = "temperature_station"
     dp = make_processor(target_var)
     dem, aux_field = target_fields(dp, TARGET_HW, seed=0)
-    cfg = ConvNPConfig(unet_channels=(64, 64, 64, 64), likelihood="gnp",
-                       internal_density=500, rank=64, decoder_channels=64,
-                       mlp_hidden=64, kernel_size=5, compute_dtype="bfloat16")
+    cfg = flagship_config()
     task0 = cycle_task(0, N_TASKS, cfg.internal_density)
     model = build_model(cfg, task0, seed=0, device=dev)
     results = kernel_checks(dev, model, dp, dem, task0)
@@ -2895,11 +3545,16 @@ def main() -> int:
     ddp_counts = ddp_phase(dev, setconv_cuda)
     remat_counts = remat_phase(dev, cfg, setconv_cuda)
     resume_counts = resume_phase(dev, cfg, setconv, setconv_cuda)
+    dp_serve_counts = dp_serve_phase(dev, setconv_cuda)
+    wrf_counts, wrf_errs = wrf_phase(dev, cfg, setconv, setconv_cuda)
+    for name, err in wrf_errs.items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
     phases = {"serve": serve_counts, "service": service_counts, "sample-serve": sample_counts,
               "ar": ar_counts, "al": al_counts, "train": train_counts,
               "pipeline": pipeline_counts, "validate": validate_counts, "cli-train": cli_counts,
-              "ddp": ddp_counts, "remat": remat_counts, "resume": resume_counts}
+              "ddp": ddp_counts, "remat": remat_counts, "resume": resume_counts,
+              "dp-serve": dp_serve_counts, "wrf": wrf_counts}
     launches = {name: sum(c[name] for c in phases.values()) for name in KERNELS}
     say("launches", "; ".join(f"{k} {v}" for k, v in phases.items()))
     say("total", f"{time.perf_counter() - t_start:.1f} s wall, the kernels' build included")
@@ -2915,4 +3570,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
         sys.exit(ddp_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--dp-serve-worker"]:
+        sys.exit(dp_serve_worker(*sys.argv[2:4]))
     sys.exit(main())

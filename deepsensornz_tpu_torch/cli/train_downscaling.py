@@ -16,10 +16,10 @@ Counterpart of ``deepsensornz_tpu/cli/train_downscaling.py``:
   ``task_loader.pkl`` and ``data_processor.json`` under
   ``{save_model}/{variable}/{model_name}/``.
 
-``synthetic: true`` runs the whole pipeline on generated NZ-like data.
-The on-disk archives (netCDF through h5py) are not ported yet, so any
-other run raises. Training runs on the card unless ``--device`` says
-otherwise.
+``synthetic: true`` runs the whole pipeline on generated NZ-like data;
+otherwise :func:`load_real_data` reads the ERA5 or WRF base, the DEM and
+the station archive of the data paths (netCDF, through h5py). Training
+runs on the card unless ``--device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -38,15 +38,52 @@ from deepsensornz_tpu_torch.utils import validate_and_convert_args
 
 
 def load_real_data(args):
-    """The JAX package reads the ERA5 or WRF base, the DEM and the station
-    archives from disk here. Those readers are not ported yet: raises."""
-    raise NotImplementedError(
-        "training from the on-disk archives is not ported yet: the ERA5 and WRF "
-        "readers (data/sources/era5.py, data/sources/wrf.py), the station archive "
-        "(data/sources/stations.py) and the topography (data/sources/topography.py) "
-        "need the netCDF I/O of data/grid.py (h5py); use synthetic: true, or train "
-        "with the JAX package's CLI"
-    )
+    """The training inputs from the on-disk archives of the data paths:
+    ``(base_fields, dem, stations, wrf_source)``. The ERA5 base reads the
+    year files from ``train_start_year`` to ``val_end_year`` (else
+    ``train_end_year``) every ``year_step`` years, with daily stations;
+    ``base: wrf`` reads the midnight cycles ``start_init``..``end_init``,
+    every ``time_intervals``-th hourly file, with hourly stations, and
+    returns the :class:`WRFSource` that ``run_processing_sequence``
+    regrids with (else None). Needs h5py."""
+    from deepsensornz_tpu_torch.data.sources.era5 import ERA5Source
+    from deepsensornz_tpu_torch.data.sources.stations import StationSource
+    from deepsensornz_tpu_torch.data.sources.topography import topography_from_paths
+    from deepsensornz_tpu_torch.paths import get_data_paths
+
+    paths = get_data_paths()
+    variable = args["variable"]
+    context_vars = list(dict.fromkeys([variable] + args.get("context_variables", [])))
+    wrf_source = None
+    if args.get("base") == "wrf":
+        from datetime import datetime
+
+        from deepsensornz_tpu_torch.data.sources.wrf import WRFSource
+
+        wrf_source = WRFSource(paths["wrf"]["parent"])
+        start = datetime.strptime(str(args["start_init"]), "%Y%m%d")
+        end = datetime.strptime(str(args.get("end_init") or args["start_init"]), "%Y%m%d")
+        fpaths = wrf_source.get_filepaths(start, end)
+        fpaths = fpaths[:: args.get("time_intervals") or 1]
+        if not fpaths:
+            raise FileNotFoundError(
+                f"no WRF files for inits {args['start_init']}..{args.get('end_init')} "
+                f"under {paths['wrf']['parent']}")
+        base_fields = wrf_source.load(fpaths, context_vars)
+    else:
+        years = list(range(args.get("train_start_year", 2000),
+                           args.get("val_end_year", args.get("train_end_year", 2001)) + 1,
+                           args.get("year_step") or 1))
+        era5 = ERA5Source(paths["era5"]["parent"])
+        base_fields = {v: era5.load(v, years) for v in context_vars}
+    base = base_fields[variable]
+    dem = topography_from_paths(paths).load(area=args.get("area"))
+    stations = StationSource(paths["stations"]["parent"]).load_stations_time(
+        variable, base.coords["time"],
+        # WRF matches stations at the cycle files' hourly stamps; ERA5 is daily
+        daily=args.get("base") != "wrf",
+        remove_stations=args.get("remove_stations", []))
+    return base_fields, dem, stations, wrf_source
 
 
 def load_synthetic_data(args):

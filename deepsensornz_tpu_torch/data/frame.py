@@ -13,6 +13,7 @@ nothing here imports pandas.
 
 from __future__ import annotations
 
+import pickle
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -120,3 +121,20 @@ def is_pandas_frame(obj) -> bool:
     """True for a pandas DataFrame, found without importing pandas."""
     t = type(obj)
     return t.__name__ == "DataFrame" and t.__module__.split(".")[0] == "pandas"
+
+
+class FrameUnpickler(pickle.Unpickler):
+    """Unpickles, and refuses with ``reason`` (a ``RuntimeError``) a pickle
+    that holds pandas objects where pandas is not installed."""
+
+    def __init__(self, file, reason: str):
+        super().__init__(file)
+        self.reason = reason
+
+    def find_class(self, module: str, name: str):
+        if module.split(".")[0] == "pandas":
+            try:
+                import pandas  # noqa: F401
+            except ImportError as e:
+                raise RuntimeError(self.reason) from e
+        return super().find_class(module, name)

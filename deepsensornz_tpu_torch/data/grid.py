@@ -1,13 +1,19 @@
-"""Labeled N-d grids (``Field``) and collections (``Dataset``).
+"""Labeled N-d grids (``Field``) and collections (``Dataset``), and their
+netCDF-4 files.
 
-numpy copy of ``deepsensornz_tpu/data/grid.py`` without its NetCDF I/O
-(that needs h5py): construction, ``dims``/``coords``, ``values``/``dtype``,
-``rename``/``rename_dims``/``astype``, label and position selection
-(``sel`` with slices, ``method="nearest"`` and ``tolerance``; ``isel``),
-block coarsening, ``mean``/``sum``, nearest/linear ``interp_like``,
-``fillna``/``where``, ``resolution`` and arithmetic; and
-``interp_grid_at_points`` from ``deepsensornz_tpu/task/loader.py``, which
-the loader and AR sampling on a grid need.
+numpy copy of ``deepsensornz_tpu/data/grid.py``: construction,
+``dims``/``coords``, ``values``/``dtype``, ``rename``/``rename_dims``/
+``astype``, label and position selection (``sel`` with slices,
+``method="nearest"`` and ``tolerance``; ``isel``), block coarsening,
+``mean``/``sum``, nearest/linear ``interp_like``, ``fillna``/``where``,
+``resolution`` and arithmetic; ``interp_grid_at_points`` from
+``deepsensornz_tpu/task/loader.py``, which the loader and AR sampling on a
+grid need; and the netCDF-4 (HDF5) files, :func:`save_dataset` and
+:func:`open_dataset` with the CF time codec, through h5py. h5py is imported
+by those two functions only: without it they raise ``RuntimeError`` and the
+rest of the module works. The files are the JAX package's, byte for byte
+in their values, coordinates, attributes and dtypes, so either side reads
+what the other wrote.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import warnings
 from typing import Any, Iterator, Mapping, Sequence
 
 import numpy as np
+
+_CF_EPOCH = np.datetime64("1970-01-01T00:00:00", "s")
 
 
 @dataclasses.dataclass
@@ -381,3 +389,174 @@ def interp_grid_at_points(field: Field, x1: np.ndarray, x2: np.ndarray) -> np.nd
     i2, w2 = locate(g2s, np.asarray(x2, np.float64))
     return (d[..., i1, i2] * (1 - w1) * (1 - w2) + d[..., i1, i2 + 1] * (1 - w1) * w2
             + d[..., i1 + 1, i2] * w1 * (1 - w2) + d[..., i1 + 1, i2 + 1] * w1 * w2)
+
+
+# ---------------------------------------------------------------------------
+# netCDF-4 (HDF5) I/O
+# ---------------------------------------------------------------------------
+
+
+def _h5py(what: str):
+    """The h5py module, imported here so that nothing else needs it."""
+    try:
+        import h5py
+    except ImportError:
+        raise RuntimeError(f"h5py unavailable; cannot {what} netCDF") from None
+    return h5py
+
+
+def _encode_time(values: np.ndarray) -> tuple[np.ndarray, str]:
+    secs = (values.astype("datetime64[s]") - _CF_EPOCH).astype("int64")
+    return secs.astype("float64"), "seconds since 1970-01-01 00:00:00"
+
+
+def _decode_time(values: np.ndarray, units: str) -> np.ndarray:
+    parts = units.split(" since ")
+    scale = {"seconds": "s", "minutes": "m", "hours": "h", "days": "D"}[parts[0].strip().lower()]
+    origin = np.datetime64(parts[1].strip().replace(" ", "T").rstrip("Z"), "s")
+    mult = {"s": 1, "m": 60, "h": 3600, "D": 86400}[scale]
+    return origin + (np.asarray(values, dtype="float64") * mult).astype("timedelta64[s]")
+
+
+def save_dataset(ds: Dataset | Field, path: str, compress: bool = True,
+                 float32: bool = True, packing: str | None = None) -> None:
+    """Write a Dataset/Field as a netCDF-4-compatible HDF5 file: dimension
+    scales for the coordinates (time CF-encoded as float64 seconds since
+    1970), float data cast to float32 when ``float32``, gzip level 1 with
+    shuffle on chunked variables of more than 1024 values when
+    ``compress``, and scalar attributes of the fields and the Dataset.
+
+    ``packing="int16"`` stores float data variables as CF-packed int16 with
+    per-variable ``scale_factor``/``add_offset`` (float64) and
+    ``_FillValue`` -32768 for NaN; coordinates stay full precision."""
+    h5py = _h5py("write")
+    if isinstance(ds, Field):
+        ds = Dataset([ds])
+    with h5py.File(path, "w") as f:
+        written_dims: dict[str, Any] = {}
+        for field in ds.values():
+            for dim in field.dims:
+                if dim in written_dims or dim not in field.coords:
+                    continue
+                coord = field.coords[dim]
+                attrs = {}
+                if np.issubdtype(coord.dtype, np.datetime64):
+                    coord, units = _encode_time(coord)
+                    attrs["units"] = units
+                    attrs["calendar"] = "proleptic_gregorian"
+                d = f.create_dataset(dim, data=coord)
+                for k, v in attrs.items():
+                    d.attrs[k] = v
+                d.make_scale(dim)
+                written_dims[dim] = d
+        for name, field in ds.items():
+            data = field.data
+            pack_attrs = {}
+            if packing == "int16" and np.issubdtype(data.dtype, np.floating):
+                finite = np.isfinite(data)
+                lo = float(data[finite].min()) if finite.any() else 0.0
+                hi = float(data[finite].max()) if finite.any() else 0.0
+                scale = max((hi - lo) / 65533.0, 1e-12)
+                offset = lo + scale * 32766.0
+                packed = np.where(finite, np.round((data - offset) / scale), -32768.0)
+                data = packed.astype(np.int16)
+                pack_attrs = {"scale_factor": np.float64(scale),
+                              "add_offset": np.float64(offset),
+                              "_FillValue": np.int16(-32768)}
+            elif float32 and np.issubdtype(data.dtype, np.floating):
+                data = data.astype(np.float32)
+            kw = {}
+            if compress and data.ndim >= 1 and data.size > 1024:
+                kw = dict(compression="gzip", compression_opts=1, chunks=True, shuffle=True)
+            v = f.create_dataset(name, data=data, **kw)
+            for k, val in pack_attrs.items():
+                v.attrs[k] = val
+            for i, dim in enumerate(field.dims):
+                if dim in written_dims:
+                    v.dims[i].attach_scale(written_dims[dim])
+            for k, val in field.attrs.items():
+                if isinstance(val, (str, int, float, np.number)):
+                    v.attrs[k] = val
+        for k, val in ds.attrs.items():
+            if isinstance(val, (str, int, float, np.number)):
+                f.attrs[k] = val
+
+
+_H5_BOOKKEEPING = ("DIMENSION_LIST", "CLASS", "NAME", "REFERENCE_LIST", "_Netcdf4Coordinates")
+
+
+def open_dataset(path: str, variables: Sequence[str] | None = None,
+                 time_window: tuple | None = None) -> Dataset:
+    """Read a netCDF-4/HDF5 file into a Dataset: dimension scales become
+    coordinates (decoded to ``datetime64[s]`` where their ``units`` say
+    "<unit> since <origin>"), every other dataset a Field (only
+    ``variables`` when given), a dim without a scale named ``dim_<i>``;
+    CF-packed variables unpacked (``_FillValue`` → NaN).
+
+    ``time_window=(t0, t1)`` (datetime64-coercible, inclusive) reads only
+    the rows of time-dimensioned variables whose time falls in the window,
+    a hyperslab read; variables without a time dimension load whole, and an
+    empty overlap gives zero-length time axes."""
+    h5py = _h5py("read")
+    fields: dict[str, Field] = {}
+    with h5py.File(path, "r") as f:
+        scales, data_vars = {}, {}
+        for name, obj in f.items():
+            if not isinstance(obj, h5py.Dataset):
+                continue
+            if obj.attrs.get("CLASS", b"") == b"DIMENSION_SCALE":
+                scales[name] = obj
+            else:
+                data_vars[name] = obj
+
+        def read_coord(obj):
+            vals = obj[()]
+            units = obj.attrs.get("units", b"")
+            if isinstance(units, bytes):
+                units = units.decode()
+            if " since " in str(units):
+                vals = _decode_time(vals, str(units))
+            return vals
+
+        coords = {n: read_coord(o) for n, o in scales.items()}
+        tsel = None  # (lo, hi) row slice of the time axis
+        if time_window is not None and "time" in coords and np.issubdtype(
+                np.asarray(coords["time"]).dtype, np.datetime64):
+            t = np.asarray(coords["time"]).astype("datetime64[s]")
+            t0 = np.datetime64(time_window[0], "s")
+            t1 = np.datetime64(time_window[1], "s")
+            inside = np.nonzero((t >= t0) & (t <= t1))[0]
+            lo = int(inside[0]) if len(inside) else 0
+            hi = int(inside[-1]) + 1 if len(inside) else 0
+            tsel = (lo, hi)
+            coords = dict(coords)
+            coords["time"] = coords["time"][lo:hi]
+        for name, obj in data_vars.items():
+            if variables is not None and name not in variables:
+                continue
+            dims = []
+            for i in range(obj.ndim):
+                attached = [s.name.lstrip("/") for s in obj.dims[i].values()] if obj.dims[i] else []
+                dims.append(attached[0] if attached else f"dim_{i}")
+            fcoords = {d: coords[d] for d in dims if d in coords}
+            attrs = {k: (v.decode() if isinstance(v, bytes) else v)
+                     for k, v in obj.attrs.items() if k not in _H5_BOOKKEEPING}
+            if tsel is not None and "time" in dims:
+                ax = dims.index("time")
+                data = obj[tuple(slice(tsel[0], tsel[1]) if i == ax else slice(None)
+                                 for i in range(obj.ndim))]
+            else:
+                data = obj[()]
+            # CF packing: unpacked = packed*scale_factor + add_offset,
+            # _FillValue -> NaN
+            if "scale_factor" in attrs or "add_offset" in attrs:
+                sf = float(attrs.pop("scale_factor", 1.0))
+                ao = float(attrs.pop("add_offset", 0.0))
+                fv = attrs.pop("_FillValue", None)
+                bad = (data == fv) if fv is not None else None
+                data = data.astype(np.float32) * sf + ao
+                if bad is not None:
+                    data = np.where(bad, np.nan, data)
+            fields[name] = Field(data, tuple(dims), fcoords, name, attrs)
+        file_attrs = {k: (v.decode() if isinstance(v, bytes) else v) for k, v in f.attrs.items()}
+    return Dataset(fields, file_attrs)

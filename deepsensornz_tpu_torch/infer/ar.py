@@ -13,6 +13,12 @@ same shapes. The block chain is a loop of device operations: nothing is
 read back to the host between blocks, and the sample of the whole chain is
 copied once at its end. The feedback slots are written in place into the
 chain's own copy of the context set (JAX builds a new one per block).
+
+With a data mesh (``mesh=``), every rank passes the same global batch and
+runs the chain on its rows; the visit orders and sample draws are those one
+process makes for the whole batch (each rank draws them all and keeps its
+rows, :func:`sample_rows`), so the samples do not depend on the number of
+ranks, and the ranks' samples are gathered on the device in rank order.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deepsensornz_tpu_torch.parallel.mesh import gather_rows, rank_indices, rows_of_rank
+from deepsensornz_tpu_torch.task.batching import take
 from deepsensornz_tpu_torch.task.task import PointContext, TaskBatch
 
 
@@ -36,6 +44,29 @@ def _extend_point_context(pc: PointContext, extra: int) -> PointContext:
         y=torch.cat([pc.y.float(), torch.zeros((B, extra, C), **kw)], 1),
         mask=torch.cat([pc.mask.float(), torch.zeros((B, extra), **kw)], 1),
     )
+
+
+def sample_rows(lik, raw: torch.Tensor, generator: torch.Generator, n: int, mesh,
+                batch: int) -> torch.Tensor:
+    """``n`` samples (n, per, ..., dy) of this rank's rows ``raw`` (per,
+    ..., K) of a ``batch``-task batch, from the draws that
+    ``lik.sample(raw_of_the_batch, generator, n)`` makes in one process:
+    every rank draws them for the whole batch (the mixed heads' draws read
+    the values, so those gather the batch's ``raw`` first) and keeps its
+    rows; the pad rows past ``batch`` get zero draws."""
+    start, per = rows_of_rank(mesh, batch)
+    if lik.draws_depend_on_raw:
+        like = gather_rows(raw, mesh)[:batch]
+    else:
+        like = raw[:1].expand((batch,) + raw.shape[1:])  # the shape, no copy
+    mine = []
+    for d in lik.draw(like, generator, n):
+        part = d[:, start:start + per]
+        if part.shape[1] < per:
+            part = torch.cat([part, part.new_zeros((d.shape[0], per - part.shape[1])
+                                                   + d.shape[2:])], 1)
+        mine.append(part)
+    return lik.transform(raw, tuple(mine))
 
 
 def block_geometry(M: int, n_blocks: int) -> tuple[int, int, int]:
@@ -54,6 +85,7 @@ def ar_sample(
     ar_context_idx: int = -1,
     generator: Optional[torch.Generator] = None,
     std_scale: float = 1.0,
+    mesh=None,
 ) -> np.ndarray:
     """Draw AR samples at ``task.xt`` on the model's device. Returns
     (n_samples, B, M, dy).
@@ -64,13 +96,20 @@ def ar_sample(
     where the targets carry fewer). ``std_scale`` applies the model's
     post-hoc spread recalibration to each block (``rescale_raw``).
     ``generator`` (on the model's device; a generator seeded 0 if None)
-    draws the visit orders and the samples.
+    draws the visit orders and the samples. ``mesh``: a data mesh over
+    which the global ``task`` (the same on every rank) is split, padded to
+    the data axis (``parallel.mesh.rank_indices``); every rank returns the
+    whole batch's samples, equal to one process's with the same generator.
     """
     dev = next(model.parameters()).device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, the model on {dev}")
+    batch = task.batch_size
+    if mesh is not None:
+        start, per = rows_of_rank(mesh, batch)
+        task = take(task, rank_indices(mesh, np.arange(batch)))
     task = task.to(dev)
     B, M, _ = task.xt.shape
     dy = model.cfg.dim_yt
@@ -85,27 +124,35 @@ def ar_sample(
     task_ext = dataclasses.replace(task, points=tuple(
         _extend_point_context(p, n_blocks * block) if i == idx else p
         for i, p in enumerate(task.points)))
-    out = np.zeros((n_samples, B, M, dy), np.float32)
+    out = np.zeros((n_samples, batch, M, dy), np.float32)
     with torch.inference_mode():
         for s in range(n_samples):
-            # a random visit order per task; the pad revisits the first
-            # targets and is kept out of the output and feedback (run_chain)
+            # a random visit order per task of the batch; the pad revisits the
+            # first targets and is kept out of the output and feedback
             perm = torch.stack([torch.randperm(M, generator=generator, device=dev)
-                                for _ in range(B)])
+                                for _ in range(batch)])
+            if mesh is not None:  # this rank's rows; the pad rows visit in order
+                perm = torch.cat([perm, torch.arange(M, device=dev).expand(
+                    start + per - min(start + per, batch), M)])[start:start + per]
             order = torch.cat([perm, perm[:, :pad]], 1) if pad else perm
-            out[s] = run_chain(model, task_ext, order, generator, std_scale, idx=idx,
-                               base_n=base_n, n_extra=n_extra, block=block,
-                               n_blocks=n_blocks, pad=pad).cpu().numpy()
+            smp = run_chain(model, task_ext, order, generator, std_scale, idx=idx,
+                            base_n=base_n, n_extra=n_extra, block=block, n_blocks=n_blocks,
+                            pad=pad, mesh=mesh, batch=batch)
+            if mesh is not None:
+                smp = gather_rows(smp, mesh)[:batch]
+            out[s] = smp.cpu().numpy()
     return out
 
 
 @torch.inference_mode()
 def run_chain(model, task_ext: TaskBatch, order: torch.Tensor, generator: torch.Generator,
               std_scale: float, *, idx: int, base_n: int, n_extra: int, block: int,
-              n_blocks: int, pad: int) -> torch.Tensor:
+              n_blocks: int, pad: int, mesh=None, batch: int = 0) -> torch.Tensor:
     """One AR chain over the visit ``order`` (B, n_blocks·block); returns
     the (B, M, dy) sample on the device. ``task_ext`` has the feedback slots
-    after the ``base_n`` real points of context set ``idx``."""
+    after the ``base_n`` real points of context set ``idx``. With ``mesh``,
+    ``task_ext`` holds this rank's rows of a ``batch``-task batch, and each
+    block's draws are the whole batch's (:func:`sample_rows`)."""
     lik = model.cfg.make_likelihood()
     dev = task_ext.xt.device
     B, M = task_ext.xt.shape[:2]
@@ -131,7 +178,8 @@ def run_chain(model, task_ext: TaskBatch, order: torch.Tensor, generator: torch.
         probe = dataclasses.replace(task_ext, points=tuple(points), xt=xt_blk, yt=None,
                                     yt_mask=mask_blk, yt_aux=aux_blk)
         raw = lik.rescale_raw(model(probe), std_scale)           # (B, block, K)
-        sample = lik.sample(raw, generator, 1)[0]                # (B, block, dy)
+        sample = (lik.sample(raw, generator, 1) if mesh is None    # (B, block, dy)
+                  else sample_rows(lik, raw, generator, 1, mesh, batch))[0]
         if n_extra == 0:
             feedback = sample
         elif aux_blk is not None and aux_blk.shape[-1] >= n_extra:

@@ -16,6 +16,16 @@ Counterpart of ``Predictor`` in ``deepsensornz_tpu/infer/predict.py``:
 - ``ar_sample_grid`` draws coherent AR samples on a subsampled grid and
   interpolates them back onto the full grid.
 
+``predict_grid``, ``predict_points``, ``ar_sample_grid`` (and
+``infer.ar.ar_sample``) take ``mesh=``, a data mesh of
+``parallel.mesh.make_mesh``: every rank passes the same global batch, the
+batch (each chunk of it, with ``batch_chunk``) is padded to a multiple of
+the data axis and split over the ranks, each rank runs the forward on its
+rows, the device outputs are gathered in rank order and the pad rows
+dropped; the host steps then run as in one process, and every rank
+returns the whole result. Sample draws are the whole batch's on every rank
+(``infer.ar.sample_rows``), so they do not depend on the number of ranks.
+
 Every request runs under ``torch.inference_mode()``. The transfer modes
 shrink what crosses the host link: ``transfer_dtype`` casts the finished
 maps on the device (``"float16"``/``"bfloat16"``) or quantises them there
@@ -36,7 +46,8 @@ import torch
 
 from deepsensornz_tpu_torch.data.grid import Dataset, Field, interp_grid_at_points
 from deepsensornz_tpu_torch.data.processor import DataProcessor
-from deepsensornz_tpu_torch.infer.ar import ar_sample
+from deepsensornz_tpu_torch.infer.ar import ar_sample, sample_rows
+from deepsensornz_tpu_torch.parallel.mesh import gather_rows, rank_indices
 from deepsensornz_tpu_torch.task.batching import take
 from deepsensornz_tpu_torch.task.task import GridContext, PointContext, TaskBatch
 
@@ -151,6 +162,18 @@ def _upload(task: TaskBatch, device: torch.device, upload_dtype: Optional[str]) 
         yt_aux=None, x1g=task.x1g.to(device), x2g=task.x2g.to(device))
 
 
+def _gather_out(out: dict, mesh, batch: int) -> dict:
+    """The ranks' transfer-format outputs gathered in rank order, the pad
+    rows past ``batch`` dropped: mean/std (and their quantisation ``lo``/
+    ``scale``) along dim 0, samples along dim 1."""
+    def gather(t, dim):
+        return gather_rows(t, mesh, dim).narrow(dim, 0, batch)
+
+    return {k: ({kk: gather(vv, int(k == "samples")) for kk, vv in v.items()}
+                if isinstance(v, dict) else gather(v, int(k == "samples")))
+            for k, v in out.items()}
+
+
 def _scatter(a: np.ndarray, land: Optional[np.ndarray], Ht: int, Wt: int) -> np.ndarray:
     """(..., cells, C) → (..., Ht, Wt, C), NaN outside ``land`` when given."""
     lead = a.shape[:-2]
@@ -241,6 +264,7 @@ class Predictor:
         post_transform=None,
         resolution_factor: float = 1.0,
         outputs: tuple = ("mean", "std"),
+        mesh=None,
     ) -> Prediction:
         """Predict on the grid of ``target_elev``.
 
@@ -251,7 +275,8 @@ class Predictor:
         the grid, drawn from a generator seeded with ``seed``.
         ``post_transform(mean, std) -> (mean, std)`` maps the normalised
         moments before unnormalisation; it is applied to the samples as
-        ``post_transform(samples, None)``.
+        ``post_transform(samples, None)``. ``mesh``: split the batch over
+        the data ranks (module docstring).
         """
         if "mean" not in outputs or not set(outputs) <= {"mean", "std"}:
             raise ValueError(f"outputs must be ('mean','std') or ('mean',); got {outputs}")
@@ -292,7 +317,7 @@ class Predictor:
                 land = np.flatnonzero(~sea2d.ravel())
 
         mean, std, samples = self._forward_chunked(task, xt1, xt2, aux, n_samples, seed,
-                                                   outputs, land)
+                                                   outputs, land, mesh)
         if post_transform is not None:
             mean, std = post_transform(mean, std)
             if samples is not None:
@@ -323,18 +348,21 @@ class Predictor:
                     {"sample": np.arange(n_samples), **coords}, f"samples{suffix}", {})
         return Prediction(fields)
 
-    def _forward_chunked(self, task, xt1, xt2, aux, n_samples, seed, outputs, land):
+    def _forward_chunked(self, task, xt1, xt2, aux, n_samples, seed, outputs, land, mesh=None):
         """Host float32 maps mean/std (B, Ht, Wt, dy) and samples
         (n, B, Ht, Wt, dy) or None, NaN outside ``land`` when given: one
         forward of the whole batch, or chunk by chunk when ``batch_chunk``
-        is set and exceeded."""
+        is set and exceeded; with ``mesh``, each forward over the data
+        ranks' rows, gathered before the download."""
         dev = self.device
         B, chunk = task.batch_size, self.batch_chunk
         Ht, Wt, dy = len(xt1), len(xt2), self.model.cfg.dim_yt
         if not chunk or B <= chunk:
             with torch.inference_mode():
+                if mesh is not None:
+                    task = take(task, rank_indices(mesh, np.arange(B)))
                 out = self._device_forward(_upload(task, dev, self.upload_dtype), xt1, xt2, aux,
-                                           n_samples, seed, outputs, land)
+                                           n_samples, seed, outputs, land, mesh, B)
                 host, event = _download(out, dev)
             if event is not None:
                 event.synchronize()
@@ -357,6 +385,17 @@ class Predictor:
                 else:
                     _scatter_into(full[k][off:off + n], a[:n], land)
 
+        offsets = range(0, B, chunk)
+        chunks = []  # each chunk's task indices, the tail padded with its last task
+        for off in offsets:
+            idx = np.arange(off, min(off + chunk, B))
+            chunks.append(np.concatenate([idx, np.full(chunk - len(idx), idx[-1], idx.dtype)]))
+        if mesh is not None:
+            # this rank's rows of every chunk, uploaded once; each chunk then
+            # takes its rows of the upload
+            mine = [rank_indices(mesh, idx) for idx in chunks]
+            task = take(task, np.concatenate(mine))
+            chunks = [np.arange(i * len(m), (i + 1) * len(m)) for i, m in enumerate(mine)]
         with torch.inference_mode():
             t_up = time.perf_counter()
             task = _upload(task, dev, self.upload_dtype)  # the whole batch, once
@@ -366,11 +405,10 @@ class Predictor:
             t_run = time.perf_counter()
             futures = []
             with ThreadPoolExecutor(self.download_threads) as pool:
-                for off in range(0, B, chunk):
-                    idx = np.arange(off, min(off + chunk, B))
-                    idx = np.concatenate([idx, np.full(chunk - len(idx), idx[-1], idx.dtype)])
+                for off, idx in zip(offsets, chunks):
                     out = self._device_forward(take(task, torch.from_numpy(idx).to(dev)), xt1, xt2,
-                                               aux, n_samples, seed + off, outputs, land)
+                                               aux, n_samples, seed + off, outputs, land, mesh,
+                                               chunk)
                     futures.append(pool.submit(fetch_into, *_download(out, dev), off))
                 for f in futures:
                     f.result()
@@ -378,11 +416,15 @@ class Predictor:
                              "overlap_s": round(time.perf_counter() - t_run, 3)}
         return full["mean"], full.get("std"), full.get("samples")
 
-    def _device_forward(self, task, xt1, xt2, aux, n_samples, seed, outputs, land) -> dict:
+    def _device_forward(self, task, xt1, xt2, aux, n_samples, seed, outputs, land,
+                        mesh=None, batch: int = 0) -> dict:
         """Forward, moments and samples of a task on the device, in the
         transfer format: (B, cells, dy) mean/std and (n, B, cells, dy)
         samples, over the ``land`` cells when given, else every cell;
-        each a tensor, or a quantised dict (:func:`_quantize`)."""
+        each a tensor, or a quantised dict (:func:`_quantize`). With
+        ``mesh``, ``task`` is this rank's rows of a ``batch``-task batch:
+        the samples are drawn as for the batch (:func:`sample_rows`) and
+        the result is the batch's, gathered from every rank."""
         dev = self.device
         lik = self.likelihood
         B, Ht, Wt = task.batch_size, len(xt1), len(xt2)
@@ -395,32 +437,38 @@ class Predictor:
         if n_samples > 0:
             # over the flattened grid, so the gnp head samples jointly
             gen = torch.Generator(device=dev).manual_seed(int(seed))
-            out["samples"] = lik.sample(raw, gen, n_samples)  # (n, B, Ht·Wt, dy)
+            out["samples"] = (lik.sample(raw, gen, n_samples) if mesh is None  # (n, B, Ht·Wt, dy)
+                              else sample_rows(lik, raw, gen, n_samples, mesh, batch))
         if land is not None:
             idx = torch.from_numpy(land).to(dev)
             out = {k: v.index_select(-2, idx) for k, v in out.items()}
         out = {k: v.float() for k, v in out.items()}
         bits = _QUANT_BITS.get(self.transfer_dtype)
         if bits:
-            return {k: _quantize(v, bits) for k, v in out.items()}
-        if self.transfer_dtype:
-            return {k: v.to(_CASTS[self.transfer_dtype]) for k, v in out.items()}
-        return out
+            out = {k: _quantize(v, bits) for k, v in out.items()}
+        elif self.transfer_dtype:
+            out = {k: v.to(_CASTS[self.transfer_dtype]) for k, v in out.items()}
+        return out if mesh is None else _gather_out(out, mesh, batch)
 
     def predict_points(self, task: TaskBatch, unnormalise: bool = True,
-                       post_transform=None) -> dict[str, np.ndarray]:
+                       post_transform=None, mesh=None) -> dict[str, np.ndarray]:
         """Mean/std at ``task.xt`` (the station-holdout path). Arrays of
         shape (B, M) for single-channel models, (B, M, dy) for dim_yt > 1,
         NaN where ``task.yt_mask`` is 0; with ``mask`` and, for
-        bernoulli-gamma, the wet probability ``p_wet`` (B, M)."""
+        bernoulli-gamma, the wet probability ``p_wet`` (B, M). ``mesh``:
+        split the batch over the data ranks (module docstring)."""
         lik = self.likelihood
         with torch.inference_mode():
-            raw = lik.rescale_raw(self.model(task.to(self.device)), self.std_scale)
+            rows = task if mesh is None else take(task, rank_indices(mesh, np.arange(
+                task.batch_size)))
+            raw = lik.rescale_raw(self.model(rows.to(self.device)), self.std_scale)
             mean, std = lik.mean_std(raw)
             out = {"mean": mean, "std": std}
             if lik.name == "bernoulli-gamma":
                 # occurrence probability, untouched by the spread rescale
                 out["p_wet"] = torch.sigmoid(raw[..., 0])
+            if mesh is not None:
+                out = {k: gather_rows(v, mesh)[:task.batch_size] for k, v in out.items()}
             host = {k: v.cpu().numpy().astype(np.float64) for k, v in out.items()}
         mean, std = host["mean"], host["std"]
         if post_transform is not None:
@@ -450,11 +498,13 @@ class Predictor:
         unnormalise: bool = True,
         sea_mask: bool = True,
         seed: int = 0,
+        mesh=None,
     ) -> np.ndarray:
         """Coherent AR samples on the prediction grid: AR runs on every
         ``subsample_factor``-th cell, then each sampled field is linearly
         interpolated back onto the full grid. Returns (n_samples, B, Ht, Wt)
-        in physical units ((…, dy) for dim_yt > 1), NaN on sea."""
+        in physical units ((…, dy) for dim_yt > 1), NaN on sea. ``mesh``:
+        split the batch over the data ranks (``ar_sample``)."""
         lat = target_elev.coords[target_elev.dims[-2]]
         lon = target_elev.coords[target_elev.dims[-1]]
         lat_c = lat[::subsample_factor]
@@ -483,7 +533,7 @@ class Predictor:
             yt=None, yt_mask=torch.ones((B, M), dtype=torch.float32), yt_aux=aux)
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         samples = ar_sample(self.model, coarse, n_samples=n_samples, n_blocks=n_blocks,
-                            generator=gen, std_scale=self.std_scale)  # (S, B, M, dy)
+                            generator=gen, std_scale=self.std_scale, mesh=mesh)  # (S, B, M, dy)
         fields = samples.reshape(n_samples, B, len(lat_c), len(lon_c), dy)
         # one separable linear upsampling of every (sample, task, channel)
         w_lat = _linear_interp_weights(lat_c, lat)

@@ -62,6 +62,9 @@ class Likelihood:
 
     dim_y: int = 1
     name: str = "base"
+    # whether :meth:`draw` reads the values of ``raw`` (the mixed heads'
+    # Bernoulli and Gamma/Beta draws) or only its shape (the Gaussians')
+    draws_depend_on_raw = True
 
     def _norm(self, pointwise_nll: torch.Tensor, mask: torch.Tensor,
               n_tasks=None) -> torch.Tensor:
@@ -111,6 +114,7 @@ class HeteroscedasticGaussian(Likelihood):
     """``cnp``: per-target mean and softplus std."""
 
     name: str = "cnp"
+    draws_depend_on_raw = False
 
     def num_params(self) -> int:
         return 2 * self.dim_y
@@ -159,6 +163,7 @@ class LowRankGaussian(Likelihood):
 
     rank: int = 64
     name: str = "gnp"
+    draws_depend_on_raw = False
 
     def num_params(self) -> int:
         return self.dim_y * (2 + self.rank)

@@ -1,7 +1,8 @@
 """Data parallelism over processes (counterpart of
 ``deepsensornz_tpu/parallel``): a (data, spatial) ``DeviceMesh``, one
-process per GPU, each with its rows of every batch; the spatial partition
-of the internal grid is not ported (:mod:`.mesh`)."""
+process per GPU, each with its rows of every batch, to train and to serve
+(the ranks' outputs gathered in rank order); the spatial partition of the
+internal grid is not ported (:mod:`.mesh`)."""
 
 from deepsensornz_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,

@@ -1,5 +1,5 @@
-"""The (data, spatial) device mesh and TaskBatch sharding for data-parallel
-training.
+"""The (data, spatial) device mesh, TaskBatch sharding for data-parallel
+training and serving, and the gather of each rank's rows.
 
 Counterpart of ``deepsensornz_tpu/parallel/mesh.py``, in torch's idiom: one
 process per GPU, where JAX has one process drive every local device. The
@@ -8,7 +8,10 @@ default process group (:func:`..parallel.multihost.initialize_multihost`
 starts it), with dims ``("data", "spatial")``. A process holds only its own
 rows of a batch (:func:`shard_task`); the gradient sum over the data axis
 is an explicit all-reduce in ``train.trainer.make_train_step(mesh=...)``,
-where XLA inserts a psum.
+where XLA inserts a psum. Data-parallel serving (``Predictor`` and
+``ar_sample`` with ``mesh=``) splits a global batch the same way and
+:func:`gather_rows` puts the ranks' outputs back together in rank order,
+on every rank, where a jitted JAX function returns one global array.
 
 Not ported:
 
@@ -26,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -122,3 +126,36 @@ def shard_task(task: TaskBatch, mesh: DeviceMesh) -> TaskBatch:
                          "pad it with pad_batch_to_multiple")
     per = b // n
     return take_rows(task, per, index * per, mesh_device(mesh))
+
+
+def rows_of_rank(mesh: DeviceMesh, batch: int) -> tuple[int, int]:
+    """(first row, rows per rank) of this rank's share of a ``batch``-row
+    batch padded to a multiple of the data axis (the last rank's share may
+    run past ``batch``: those are the pad rows)."""
+    index, n = data_shard(mesh)
+    per = -(-batch // n)
+    return index * per, per
+
+
+def rank_indices(mesh: DeviceMesh, idx) -> np.ndarray:
+    """This rank's share of the task indices ``idx``, padded to a multiple
+    of the data axis by repeating the last one (the padding of
+    :func:`pad_batch_to_multiple`; the pad rows' outputs are dropped, so
+    their target masks need not be zeroed)."""
+    idx = np.asarray(idx)
+    start, per = rows_of_rank(mesh, len(idx))
+    idx = np.concatenate([idx, np.full(per * mesh.size(0) - len(idx), idx[-1], idx.dtype)])
+    return idx[start:start + per]
+
+
+def gather_rows(t: torch.Tensor, mesh: DeviceMesh, dim: int = 0) -> torch.Tensor:
+    """Every data rank's ``t`` (one shape on every rank) concatenated along
+    ``dim`` in rank order, on every rank. The tensors travel as their bytes,
+    so any dtype goes over any backend (gloo has no int16), bit for bit."""
+    n = mesh.size(0)
+    if n == 1:
+        return t
+    flat = t.contiguous().view(-1).view(torch.uint8)
+    parts = [torch.empty_like(flat) for _ in range(n)]
+    dist.all_gather(parts, flat, group=data_group(mesh))
+    return torch.cat([p.view(t.dtype).view(t.shape) for p in parts], dim)

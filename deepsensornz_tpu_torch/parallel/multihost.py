@@ -101,11 +101,21 @@ def shard_task_multihost(task, mesh: DeviceMesh):
     return take_rows(task, per, off, mesh_device(mesh))
 
 
+def group_device() -> torch.device:
+    """The device the default process group's collectives take: this
+    rank's current CUDA device under NCCL, the CPU otherwise."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
 def replicate_multihost(tree, mesh: Optional[DeviceMesh] = None, check: bool = False):
     """Rank 0's values of a parameter or optimizer dict (nested dicts of
     tensors) on every rank, on this rank's device; the input is left as it
     was. With ``check``, every rank must already hold rank 0's values
-    bitwise, else every rank raises ``ValueError``."""
+    bitwise, else every rank raises ``ValueError``; the flag that says so
+    is all-reduced on ``mesh``'s device, or without a mesh on the group's
+    (:func:`group_device`)."""
     device = mesh_device(mesh) if mesh is not None else None
     mismatched = []
 
@@ -121,7 +131,7 @@ def replicate_multihost(tree, mesh: Optional[DeviceMesh] = None, check: bool = F
     out = place(tree, "")
     if check:
         flag = torch.tensor([float(len(mismatched))],
-                            device=device if device is not None else "cpu")
+                            device=device if device is not None else group_device())
         dist.all_reduce(flag, op=dist.ReduceOp.MAX)
         if flag.item() > 0:
             raise ValueError(f"ranks hold different values (this rank: {mismatched[:5]})")

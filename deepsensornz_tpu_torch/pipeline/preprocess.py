@@ -8,25 +8,32 @@ the same inputs:
 - topography: highres elevation (coarsen ×highres_factor, NaN→0), TPI at
   0.1/0.05/0.025°, lowres elevation, the elevation_diff channel, an
   optional landmask;
-- the ERA5 base: hourly→daily, coarsen, trim to the topography extent;
+- the base: ERA5 hourly→daily, coarsen, trim to the topography extent; or
+  WRF regridded onto the topography coarsened ×``coarsen_factor`` through
+  the WRF source's regridder, renamed to the ERA5 names, temperature in
+  °C;
 - stations: area filter, duplicate-coordinate jitter, optional
   nearest-station NaN filling;
 - normalisation: a ``DataProcessor`` fitted (or reused) on the highres
   topography's extent with each variable's method; hourly records are
   fitted on one random hour per day; an optional round-trip check;
 - aux channels: circular time of year and x1/x2 positions;
-- the output bundle the ``Train`` layer reads.
+- the output bundle the ``Train`` layer reads, and its cache on disk
+  (:func:`save_processed_bundle`/:func:`load_processed_bundle`: netCDF
+  through h5py, the processor and settings as JSON, the station frame
+  pickled).
 
-Not ported yet: the WRF base (``preprocess_wrf`` raises; it needs the WRF
-source's regridder), the netCDF bundle cache
-(``save_processed_bundle``/``load_processed_bundle``, through h5py) and
-the archive readers: the fields and stations come in memory, so the JAX
-class's ``training_fpaths``, ``validation_fpaths`` and ``validation``
-arguments, which it stores and never reads, are not taken.
+The fields and stations come in memory (the readers are in
+``data/sources``), so the JAX class's ``training_fpaths``,
+``validation_fpaths`` and ``validation`` arguments, which it stores and
+never reads, are not taken.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import pickle
 from typing import Optional, Sequence
 
 import numpy as np
@@ -42,8 +49,8 @@ from deepsensornz_tpu_torch.data.features import (
     shift_humidity_to_unit_interval,
     x1x2_channels,
 )
-from deepsensornz_tpu_torch.data.frame import StationFrame
-from deepsensornz_tpu_torch.data.grid import Dataset, Field
+from deepsensornz_tpu_torch.data.frame import FrameUnpickler, StationFrame, is_pandas_frame
+from deepsensornz_tpu_torch.data.grid import Dataset, Field, open_dataset, save_dataset
 from deepsensornz_tpu_torch.data.processor import DataProcessor
 from deepsensornz_tpu_torch.data.sources.era5 import daily_resample
 
@@ -134,9 +141,23 @@ class PreprocessForDownscaling:
 
     def preprocess_wrf(self, wrf_fields: dict[str, Field], wrf_source,
                        coarsen_factor: int = 5) -> None:
-        raise NotImplementedError(
-            "the WRF base path is not ported yet: it needs the WRF source and its "
-            "regridder (ROADMAP.md, queue A, item 3)")
+        """Regrid each WRF field onto the topography coarsened
+        ×``coarsen_factor`` with ``wrf_source.regrid_to``, name it by the
+        ERA5 convention, and turn a temperature in kelvin (a mean above
+        100) into °C."""
+        assert self.dem is not None, "load_topography first"
+        target = self.dem.coarsen(coarsen_factor)
+        lat = target.coords["latitude"]
+        lon = target.coords["longitude"]
+        out = {}
+        for var, fld in wrf_fields.items():
+            short = cfg.VAR_ERA5[var]["var_name"]
+            g = wrf_source.regrid_to(fld, lat, lon)
+            if var == "temperature" and g.data[np.isfinite(g.data)].mean() > 100:
+                g = g.copy(g.data - 273.15)
+            out[short] = g.rename(short)
+        self.base_ds = Dataset(out)
+        self._raw["base"] = Dataset({k: v.copy() for k, v in out.items()})
 
     def _trim_to_topo(self, f: Field) -> Field:
         """Crop the base grid to the highres topography's extent."""
@@ -318,6 +339,8 @@ class PreprocessForDownscaling:
         self.load_topography(dem)
         self.preprocess_topography(highres_factor, lowres_factor, include_landmask)
         if self.base == "wrf":
+            if wrf_source is None:
+                raise ValueError("base='wrf' needs wrf_source (a WRFSource) for the regrid")
             self.preprocess_wrf(base_fields, wrf_source, coarsen_factor)
         else:
             self.preprocess_era5(base_fields, coarsen_factor, daily=daily)
@@ -414,6 +437,61 @@ def fill_missing_station_values(df: StationFrame) -> StationFrame:
             nearest = good_idx[np.argmin(d2, axis=1)]
             out[col][rows[bad_idx]] = vals[nearest]
     return out
+
+
+def save_processed_bundle(bundle: dict, out_dir: str) -> None:
+    """Write a processed-output bundle to ``out_dir`` in the JAX package's
+    layout: ``data_processor.json``; ``base_ds.nc``, ``aux_ds.nc``,
+    ``highres_aux_ds.nc`` and ``landmask_ds.nc`` (netCDF, float64 kept);
+    ``station_df.pkl``; ``settings.json`` (data settings and dates). The
+    station frame is pickled as a pandas DataFrame where pandas is
+    installed, which both packages read, and as the port's
+    :class:`StationFrame` elsewhere."""
+    os.makedirs(out_dir, exist_ok=True)
+    bundle["data_processor"].save(os.path.join(out_dir, "data_processor.json"))
+    for key in ("base_ds", "aux_ds", "highres_aux_ds"):
+        ds = bundle.get(key)
+        if ds is not None:
+            save_dataset(ds, os.path.join(out_dir, f"{key}.nc"), float32=False)
+    lm = bundle.get("landmask_ds")
+    if lm is not None:
+        save_dataset(Dataset([lm]), os.path.join(out_dir, "landmask_ds.nc"), float32=False)
+    st = bundle.get("station_df")
+    if st is not None:
+        try:
+            st = st.to_pandas()
+        except ImportError:
+            pass  # the port's layout
+        with open(os.path.join(out_dir, "station_df.pkl"), "wb") as f:
+            pickle.dump(st, f)
+    with open(os.path.join(out_dir, "settings.json"), "w") as f:
+        json.dump({"data_settings": bundle.get("data_settings", {}),
+                   "date_info": bundle.get("date_info", {})}, f, indent=2)
+
+
+def load_processed_bundle(out_dir: str) -> dict:
+    """The bundle :func:`save_processed_bundle` (of either package) wrote,
+    without the raw variants; the station frame as a
+    :class:`StationFrame`."""
+    bundle: dict = {"raw": {}}
+    bundle["data_processor"] = DataProcessor.load(os.path.join(out_dir, "data_processor.json"))
+    for key in ("base_ds", "aux_ds", "highres_aux_ds"):
+        path = os.path.join(out_dir, f"{key}.nc")
+        bundle[key] = open_dataset(path) if os.path.exists(path) else None
+    lm_path = os.path.join(out_dir, "landmask_ds.nc")
+    bundle["landmask_ds"] = open_dataset(lm_path)["landmask"] if os.path.exists(lm_path) else None
+    st_path = os.path.join(out_dir, "station_df.pkl")
+    bundle["station_df"] = None
+    if os.path.exists(st_path):
+        with open(st_path, "rb") as f:
+            st = FrameUnpickler(
+                f, "this station_df.pkl holds a pandas DataFrame (a bundle written where "
+                   "pandas is installed) and pandas is not installed; load the bundle once "
+                   "where pandas is installed and save it again").load()
+        bundle["station_df"] = StationFrame.from_pandas(st) if is_pandas_frame(st) else st
+    with open(os.path.join(out_dir, "settings.json")) as f:
+        bundle.update(json.load(f))
+    return bundle
 
 
 def _is_hourly(f: Field) -> bool:

@@ -44,7 +44,7 @@ import torch
 from deepsensornz_tpu_torch import config as cfg
 from deepsensornz_tpu_torch.data.features import (circ_time_encoding,
                                                   shift_humidity_from_unit_interval)
-from deepsensornz_tpu_torch.data.frame import StationFrame, is_pandas_frame
+from deepsensornz_tpu_torch.data.frame import FrameUnpickler, StationFrame, is_pandas_frame
 from deepsensornz_tpu_torch.data.grid import Dataset, Field
 from deepsensornz_tpu_torch.data.processor import DataProcessor
 from deepsensornz_tpu_torch.infer.predict import Predictor
@@ -70,26 +70,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-class _RunUnpickler(pickle.Unpickler):
+class _RunUnpickler(FrameUnpickler):
     def find_class(self, module: str, name: str):
         cls = _JAX_CLASSES.get((module, name))
-        if cls is not None:
-            return cls
-        if module.split(".")[0] == "pandas":
-            try:
-                import pandas  # noqa: F401
-            except ImportError as e:
-                raise RuntimeError(
-                    "this task_loader.pkl holds pandas DataFrames (a loader pickled by "
-                    "the JAX package) and pandas is not installed; load it once where "
-                    "pandas is installed and pickle the port's TaskLoader again") from e
-        return super().find_class(module, name)
+        return cls if cls is not None else super().find_class(module, name)
 
 
 def load_task_loader(path: str) -> TaskLoader:
     """A pickled ``TaskLoader`` of the port or of the JAX package."""
     with open(path, "rb") as f:
-        tl = _RunUnpickler(f).load()
+        tl = _RunUnpickler(
+            f, "this task_loader.pkl holds pandas DataFrames (a loader pickled by the JAX "
+               "package) and pandas is not installed; load it once where pandas is installed "
+               "and pickle the port's TaskLoader again").load()
     if not isinstance(tl, TaskLoader):
         raise TypeError(f"{path} holds a {type(tl).__name__}, not a TaskLoader")
     return tl
@@ -812,9 +805,8 @@ class ValidateWRF:
     """Forecast-cycle inference on the DEM grid coarsened by
     ``coarsen_factor``. The forecast files are read by the caller's source
     object: anything with ``load(filepaths, variables) -> {variable:
-    Field}`` and ``regrid_to(field, lat, lon) -> Field``. (The port's own
-    WRF reader waits for the data sources; the JAX package's ``WRFSource``
-    has this interface.)"""
+    Field}`` and ``regrid_to(field, lat, lon) -> Field``, as
+    :class:`~..data.sources.wrf.WRFSource` has."""
 
     def __init__(self, model_dir: str, dem: Field, coarsen_factor: int = 5, device=None):
         self.run = load_run(model_dir, device=device)

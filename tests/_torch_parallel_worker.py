@@ -1,26 +1,34 @@
-"""One rank of a data-parallel group of the port, for tests/test_torch_parallel.py.
+"""One rank of a data-parallel group of the port, for
+tests/test_torch_parallel.py (``train``) and tests/test_torch_dp_serve.py
+(``serve``).
 
-    python tests/_torch_parallel_worker.py IN_FILE OUT_DIR
+    python tests/_torch_parallel_worker.py IN_FILE OUT_DIR [train|serve]
 
 The rank, the group's size and its address come from the environment, in
 the JAX package's names (``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``,
 ``PROCESS_ID``) or torchrun's (``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), as ``initialize_multihost``
 reads them. ``IN_FILE`` (``torch.save``) holds the model config, its
-parameters and the tasks; the rank writes ``OUT_DIR/rank{r}.pt``. Imports
-the port only.
+parameters and the tasks (and, to serve, the grid, the processor and the
+draws to feed the samplers); the rank writes ``OUT_DIR/rank{r}.pt``.
+Imports the port only.
 """
 
 import dataclasses
 import sys
 
+import numpy as np
 import torch
 
+from deepsensornz_tpu_torch.infer import ar
+from deepsensornz_tpu_torch.infer.predict import Predictor
+from deepsensornz_tpu_torch.models import likelihoods as tlik
 from deepsensornz_tpu_torch.models.convnp import ConvNP, ConvNPConfig
 from deepsensornz_tpu_torch.parallel.mesh import (
     make_mesh, mesh_device, pad_batch_to_multiple, shard_task, task_shardings)
 from deepsensornz_tpu_torch.parallel.multihost import (
     initialize_multihost, replicate_multihost, shard_batch_for_host, shard_task_multihost)
+from deepsensornz_tpu_torch.task.batching import take
 from deepsensornz_tpu_torch.train import trainer as tr
 
 LR = 1e-3
@@ -72,11 +80,15 @@ def main(in_file: str, out_dir: str) -> None:
     bad = {k: v.clone() for k, v in s8.params.items()}
     if rank == 0:
         bad["ls_decoder"] += 1.0
-    try:
-        replicate_multihost(bad, mesh, check=True)
-        out["check_raised"] = False
-    except ValueError:
-        out["check_raised"] = True
+    for m, key in ((mesh, "check_raised"), (None, "check_raised_no_mesh")):
+        try:
+            replicate_multihost(bad, m, check=True)
+            out[key] = False
+        except ValueError:
+            out[key] = True
+    # without a mesh the flag goes on the group's device (the CPU under gloo)
+    same = replicate_multihost(s8.params, None, check=True)
+    out["replicated_no_mesh"] = all(torch.equal(same[k], v) for k, v in s8.params.items())
 
     # Trainer.fit: batches of 3 (padded to the data axis), a checkpoint on rank 0
     model.load_state_dict(inp["params"])
@@ -88,5 +100,66 @@ def main(in_file: str, out_dir: str) -> None:
     torch.save(out, f"{out_dir}/rank{rank}.pt")
 
 
+def serve(in_file: str, out_dir: str) -> None:
+    """Every data-parallel serving case on one group: ``predict_grid`` (8
+    tasks; 7 tasks, padded; 2 samples; 8 tasks in int16 chunks of 3, the
+    tail chunk padded; 2 samples with the draws given), ``predict_points``,
+    ``ar_sample`` (the generator's draws, and with the mean fed back in a
+    fixed visit order) and ``ar_sample_grid``."""
+    torch.set_num_threads(1)
+    info = initialize_multihost(backend="gloo")
+    mesh = make_mesh()
+    inp = torch.load(in_file, weights_only=False)
+    task, dem, aux, dp, col = inp["task8"], inp["dem"], inp["aux"], inp["dp"], inp["st_col"]
+    model = ConvNP.from_task(ConvNPConfig(**inp["cfg"]), task, device=mesh_device(mesh))
+    model.load_state_dict(inp["params"])
+    model.eval()
+    pred = Predictor(model, dp, col)
+    kw = dict(aux_at_targets=aux, mesh=mesh)
+    seven = take(task, np.arange(7))  # padded to the data axis by the mesh
+    out = {"info": info}
+    grid = pred.predict_grid(task, dem, **kw)
+    out["grid"] = {k: grid[k].data for k in ("mean", "std")}
+    out["grid7"] = {k: v.data for k, v in pred.predict_grid(seven, dem, **kw).items()}
+    out["samples"] = pred.predict_grid(task, dem, n_samples=2, seed=3, **kw)["samples"].data
+    chunked = Predictor(model, dp, col, batch_chunk=3, transfer_dtype="int16")
+    out["int16"] = {k: v.data for k, v in chunked.predict_grid(
+        task, dem, n_samples=2, seed=3, **kw).items()}
+    out["points"] = pred.predict_points(task, mesh=mesh)
+    gen = torch.Generator().manual_seed(5)
+    out["ar"] = ar.ar_sample(model, task, n_samples=2, n_blocks=3, generator=gen, mesh=mesh)
+    out["ar_grid"] = pred.ar_sample_grid(task, dem, aux_at_targets=aux, n_samples=1,
+                                         subsample_factor=8, n_blocks=3, seed=2, mesh=mesh)
+    # a head whose draws read the values: the batch's raw outputs gathered first
+    mixed = ConvNP.from_task(ConvNPConfig(**dict(inp["cfg"], likelihood="bernoulli-gamma")),
+                             task, generator=torch.Generator().manual_seed(1)).eval()
+    out["mixed"] = Predictor(mixed, dp, col).predict_grid(
+        task, dem, n_samples=2, seed=4, unnormalise=False, sea_mask=False, **kw)["samples"].data
+
+    # the samplers fed the given draws (the whole batch's, as JAX draws them)
+    e1, e2 = (torch.from_numpy(d) for d in inp["draws"])
+
+    def given(self, raw, generator, n):
+        assert raw.shape[:-1] == e1.shape[1:-1] and n == e1.shape[0]
+        return e1, e2
+
+    saved = tlik.LowRankGaussian.draw, tlik.LowRankGaussian.transform, torch.randperm
+    tlik.LowRankGaussian.draw = given
+    try:
+        out["fed"] = pred.predict_grid(task, dem, n_samples=e1.shape[0], seed=0, unnormalise=False,
+                                       sea_mask=False, **kw)["samples"].data
+        # the mean fed back in the identity visit order: deterministic chains
+        tlik.LowRankGaussian.draw = saved[0]
+        tlik.LowRankGaussian.transform = lambda self, raw, draws: self.mean_std(raw)[0][None]
+        torch.randperm = lambda m, generator=None, device=None: torch.arange(m, device=device)
+        out["ar_mean"] = ar.ar_sample(model, task, n_samples=1, n_blocks=3, mesh=mesh)
+        out["ar_grid_mean"] = Predictor(model, dp, col, std_scale=1.4).ar_sample_grid(
+            task, dem, aux_at_targets=aux, subsample_factor=8, n_blocks=3, mesh=mesh)
+    finally:
+        tlik.LowRankGaussian.draw, tlik.LowRankGaussian.transform, torch.randperm = saved
+    torch.save(out, f"{out_dir}/rank{info['process_index']}.pt")
+
+
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    {"train": main, "serve": serve}[sys.argv[3] if len(sys.argv) > 3 else "train"](
+        *sys.argv[1:3])

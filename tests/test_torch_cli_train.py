@@ -152,13 +152,18 @@ def test_jax_load_run_serves_the_port_cli_run(runs):
 
 
 def test_load_real_data_raises(tmp_path, monkeypatch):
+    """Without archives the real-data path raises as the JAX CLI does: no
+    ``era5`` entry in the data paths, then an ERA5 folder without the
+    year files (tests/test_torch_cli_operational.py trains from archives)."""
     monkeypatch.setattr(paths, "_DATA_PATHS", {"save_model": {"fpath": str(tmp_path)}})
     arg_path = _write_args(tmp_path / "args.yaml", dict(ARGS, synthetic=False))
-    with pytest.raises(NotImplementedError, match="data/sources/stations.py") as e:
+    with pytest.raises(KeyError, match="era5"):
         cli.main(["-arg_path", arg_path, "--device", "cpu"])
-    for name in ("era5", "wrf", "topography", "h5py"):
-        assert name in str(e.value)
     assert os.listdir(tmp_path / "temperature" / "cli_run") == ["args.yaml"]
+    monkeypatch.setattr(paths, "_DATA_PATHS", {"save_model": {"fpath": str(tmp_path)},
+                                               "era5": {"parent": str(tmp_path / "era5")}})
+    with pytest.raises(FileNotFoundError, match="no ERA5 files for 'temperature'"):
+        cli.main(["-arg_path", arg_path, "--device", "cpu"])
 
 
 def test_cli_knobs_reach_the_model(tmp_path, monkeypatch):

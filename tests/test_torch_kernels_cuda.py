@@ -520,3 +520,26 @@ def test_two_rank_gloo_step_equals_the_summed_shards(cuda, tmp_path, monkeypatch
         assert got["ranks_equal"]
         assert out["counts"]["encode_offgrid"] > 0 and out["counts"]["encode_offgrid_grad"] > 0
         assert not any(out["plain"].values())
+
+
+def test_two_rank_gloo_grid_request_equals_the_two_shard_process(cuda, tmp_path, monkeypatch):
+    """Data-parallel serving on the card (gloo on CUDA tensors, both ranks
+    on card 0, the chip script's [dp-serve] worker at its small model):
+    each rank's grid request, padded batch, samples, int16 chunks and
+    points are bitwise those of one process running the ranks' rows with
+    cuDNN's deterministic algorithms; B1 launched by every request, no
+    plain SetConv on the card."""
+    import chip_smoke as cs
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfgs, dp, dem, aux, tasks = cs.dp_serve_setting("small")
+    ranks = cs.dp_serve_group(tmp_path, "small")
+    with cs.deterministic_cudnn():
+        model = cs.build_model(cfgs["float32"], tasks["cycle"][0], seed=0, device=cuda)
+        ref = cs.two_shard_reference(model, dp, dem, aux, tasks, cuda)
+    for out in ranks:
+        for k, want in ref.items():
+            assert cs.same_arrays(out["float32"][k], want), k
+        assert cs.same_arrays(out["float32"]["ar"], ranks[0]["float32"]["ar"])
+        assert all(q["counts"]["encode_offgrid"] > 0 for q in out["requests"])
+        assert not any(out["plain"].values())

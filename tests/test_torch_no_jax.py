@@ -14,9 +14,10 @@ trip), train a run from data: synthetic data → preprocessing →
 such a run: ``Validate``'s metrics with a holdout, ``ValidateERA`` from raw
 fields and stations, and the quantised, chunked, threaded transfer, and
 (with h5py blocked too) place stations by active learning, time it with the
-perf harness, and train through the YAML CLI; train data parallel on a
-one-process mesh with each remat policy and resume from the JAX
-checkpoint files. The kernel module must also
+perf harness, train through the YAML CLI, and refuse every netCDF call
+with the h5py error while the WRF regrid and base run and a one-process
+data mesh serves; train data parallel on a one-process mesh with each
+remat policy and resume from the JAX checkpoint files. The kernel module must also
 import without ``nvcc``: the kernels are built at first use on the card.
 """
 
@@ -412,6 +413,93 @@ print("placed and trained", run_dir)
 """)
     assert proc.returncode == 0, proc.stderr
     assert "placed and trained" in proc.stdout
+
+
+def test_archives_and_dp_serving_without_jax_pandas_msgpack_or_h5py(tmp_path):
+    """The archive modules (netCDF, the ERA5, station, DEM and WRF readers,
+    the writer, the operational CLIs, the bundle cache) import with jax,
+    flax, pandas, msgpack and h5py blocked; every netCDF call raises the
+    JAX package's h5py error and writes nothing; the WRF regrid and the WRF
+    base need no file; a one-process data mesh serves a grid request, its
+    samples and an AR sample bitwise as no mesh does."""
+    blocked = _BLOCKED_ALL.replace('"msgpack")', '"msgpack", "h5py")')
+    proc = _run(blocked + f"""
+import os
+import numpy as np
+import torch
+import chip_smoke as cs
+from deepsensornz_tpu_torch.cli import infer, validate, train_downscaling
+from deepsensornz_tpu_torch.data import grid, synthetic
+from deepsensornz_tpu_torch.data.sources import ERA5Source, StationSource, TopographySource
+from deepsensornz_tpu_torch.data.sources.wrf import WRFSource
+from deepsensornz_tpu_torch.infer import ar, writer
+from deepsensornz_tpu_torch.infer.predict import Predictor
+from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+from deepsensornz_tpu_torch.parallel import make_mesh
+from deepsensornz_tpu_torch.parallel.multihost import initialize_multihost
+from deepsensornz_tpu_torch.pipeline import preprocess
+tmp = {str(tmp_path)!r}
+dem = synthetic.synthetic_dem(40, 40)
+calls = [lambda: grid.save_dataset(dem, os.path.join(tmp, "a.nc")),
+         lambda: grid.open_dataset(os.path.join(tmp, "a.nc")),
+         lambda: writer.save_prediction(grid.Dataset([dem.rename("mean")]),
+                                        os.path.join(tmp, "p.nc"), "temperature"),
+         lambda: TopographySource(os.path.join(tmp, "a.nc")).load()]
+open(os.path.join(tmp, "t2m_2000.nc"), "wb").close()
+calls.append(lambda: ERA5Source(tmp).load("temperature", [2000]))
+for call in calls:
+    try:
+        call()
+        raise AssertionError("a netCDF call ran without h5py")
+    except RuntimeError as e:
+        assert "h5py unavailable; cannot" in str(e), e
+assert sorted(os.listdir(tmp)) == ["t2m_2000.nc"]
+# the WRF regrid and the WRF base are numpy and scipy
+d = dem
+base = synthetic.synthetic_base_grid(n_times=4, n_lat=10, n_lon=10, freq_hours=1)
+stations = synthetic.synthetic_stations(base, d, n_stations=8)
+lat, lon = d.coords["latitude"], d.coords["longitude"]
+u, v = np.meshgrid(np.linspace(0, 1, 9), np.linspace(0, 1, 8), indexing="ij")
+fld = grid.Field(285 + np.zeros((4, 9, 8), np.float32), ("time", "y", "x"),
+                 {{"time": base.coords["time"]}}, "T2")
+fld.attrs["lat2d"] = lat.min() - 0.2 + (lat.max() - lat.min() + 0.4) * u + 0.1 * v
+fld.attrs["lon2d"] = lon.min() - 0.2 + (lon.max() - lon.min() + 0.4) * v + 0.1 * u
+out = preprocess.PreprocessForDownscaling("temperature", base="wrf").run_processing_sequence(
+    d, {{"temperature": fld}}, stations, highres_factor=2, lowres_factor=4, coarsen_factor=2,
+    wrf_source=WRFSource("", weights_dir=os.path.join(tmp, "w")))
+assert np.nanmax(np.abs(out["raw"]["base"]["t2m"].data - 11.85)) < 1e-4
+assert len(os.listdir(os.path.join(tmp, "w"))) == 1
+try:
+    preprocess.save_processed_bundle(out, os.path.join(tmp, "bundle"))
+    raise AssertionError("the bundle was written without h5py")
+except RuntimeError as e:
+    assert "h5py unavailable" in str(e)
+# data-parallel serving on a one-process mesh: bitwise no mesh
+initialize_multihost(backend="gloo")
+mesh = make_mesh()
+dp = cs.make_processor("t")
+dem2, aux = cs.target_fields(dp, (20, 18), seed=0)
+cfg = ConvNPConfig(unet_channels=(8, 8), internal_density=30, rank=4, decoder_channels=8,
+                   mlp_hidden=8, compute_dtype="float32")
+task = cs.train_task(0, 3, cfg.internal_density, base_hw=(9, 8), aux_hw=(20, 18),
+                     n_stations=12, n_targets=10)
+model = cs.build_model(cfg, task, seed=0, device="cpu")
+pred = Predictor(model, dp, "t", batch_chunk=2, transfer_dtype="int16")
+a = pred.predict_grid(task, dem2, aux_at_targets=aux, n_samples=2, seed=1)
+b = pred.predict_grid(task, dem2, aux_at_targets=aux, n_samples=2, seed=1, mesh=mesh)
+for k in a:
+    assert np.array_equal(a[k].data, b[k].data, equal_nan=True), k
+sa = ar.ar_sample(model, task, n_blocks=2, generator=torch.Generator().manual_seed(3))
+sb = ar.ar_sample(model, task, n_blocks=2, generator=torch.Generator().manual_seed(3), mesh=mesh)
+assert np.array_equal(sa, sb)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "flax", "optax", "deepsensornz_tpu", "pandas", "msgpack", "h5py")
+    and sys.modules[m] is not None)
+assert not leaked, leaked
+print("archives refused, WRF base and mesh served")
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "archives refused, WRF base and mesh served" in proc.stdout
 
 
 def test_kernel_module_imports_without_nvcc():

@@ -23,10 +23,6 @@ other: bitwise.
 """
 
 import dataclasses
-import os
-import socket
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -50,10 +46,9 @@ from deepsensornz_tpu_torch.task.task import TaskBatch
 from deepsensornz_tpu_torch.train import trainer as tr
 from deepsensornz_tpu_torch.train.checkpoint import load_checkpoint, params_from_jax
 
-REPO = Path(__file__).resolve().parent.parent
-WORKER = Path(__file__).resolve().parent / "_torch_parallel_worker.py"
+from _torch_groups import run_group
+
 LR = 1e-3
-GROUP_TIMEOUT = 120
 
 
 @pytest.fixture(scope="module")
@@ -83,44 +78,10 @@ def setting():
             "train": TaskBatch.from_numpy(jtask8), "val": TaskBatch.from_numpy(tl(times[8:10]))}
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _run_group(setting, world: int, tmp: Path, env_names: str) -> list[dict]:
     """``world`` worker processes on one free port; their outputs by rank."""
-    inp = tmp / "in.pt"
-    torch.save({k: setting[k] for k in ("cfg", "params", "task8", "task3", "train", "val")}, inp)
-    port = _free_port()
-    procs = []
-    for rank in range(world):
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
-                            "COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID")}
-        env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-        if env_names == "jax":
-            env.update(COORDINATOR_ADDRESS=f"localhost:{port}", NUM_PROCESSES=str(world),
-                       PROCESS_ID=str(rank))
-        else:
-            env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(world),
-                       RANK=str(rank), LOCAL_RANK=str(rank))
-        procs.append(subprocess.Popen([sys.executable, str(WORKER), str(inp), str(tmp)],
-                                      cwd=REPO, env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=GROUP_TIMEOUT)[0])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-            p.communicate()
-        pytest.fail(f"the {world}-process group did not finish in {GROUP_TIMEOUT} s")
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {rank} failed:\n{out}"
-    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    return run_group({k: setting[k] for k in ("cfg", "params", "task8", "task3", "train", "val")},
+                     world, tmp, env_names)
 
 
 @pytest.fixture(scope="module")
@@ -277,6 +238,17 @@ def test_replicate_check_raises_on_every_rank(groups, world):
 
 
 @pytest.mark.parametrize("world", [2, 4])
+def test_replicate_without_a_mesh(groups, world):
+    """``replicate_multihost(mesh=None, check=True)`` all-reduces its flag
+    on the process group's device (the CPU under gloo, this rank's card
+    under NCCL): equal ranks pass, a rank that differs raises on every
+    rank."""
+    for r in groups[world]["ranks"]:
+        assert r["replicated_no_mesh"]
+        assert r["check_raised_no_mesh"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
 def test_dp_fit_matches_one_process(setting, groups, world):
     """Two epochs of ``Trainer.fit`` at batch 3 (padded to the data axis):
     the same losses and parameters as one process, the same on every rank,
@@ -318,6 +290,13 @@ def test_initialize_multihost_in_one_process(one_process_group, setting):
     s2, l2 = tr.make_train_step(model)(s0, setting["task8"], LR)
     assert torch.equal(l1, l2)
     assert all(torch.equal(s1.params[k], s2.params[k]) for k in s2.params)
+
+
+def test_group_device_follows_the_backend(one_process_group):
+    assert multihost.group_device() == torch.device("cpu")  # gloo
+    params = {"a": torch.arange(3.0), "b": {"c": torch.ones(2)}}
+    out = multihost.replicate_multihost(params, check=True)
+    assert torch.equal(out["a"], params["a"]) and torch.equal(out["b"]["c"], params["b"]["c"])
 
 
 def test_spatial_partition_raises(one_process_group):

@@ -190,8 +190,11 @@ def test_area_crop_and_reused_processor_match_jax():
 
 
 def test_wrf_base_is_not_ported_and_empty_stations_raise():
+    """The WRF base needs the WRF source to regrid with (the JAX package
+    asserts it; tests/test_torch_preprocess_wrf.py holds the WRF base
+    against JAX), and an empty station frame raises."""
     b, d, s = syn.synthetic_bundle(**SIZE)
-    with pytest.raises(NotImplementedError, match="WRF"):
+    with pytest.raises(ValueError, match="wrf_source"):
         pre.PreprocessForDownscaling("temperature", base="wrf").run_processing_sequence(
             d, {"temperature": b}, s, **SEQ)
     far = s.copy()
