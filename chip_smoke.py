@@ -233,12 +233,35 @@ Phases (one line each; the first failure exits non-zero):
              against their plain versions on the ``ValidateWRF`` task and
              B1's l-gradient against float64 on a training batch, outside
              the counts.
+23. spatial - the spatial partition of the flagship's internal grid
+             (``mesh_axes``) in 2 processes of this script
+             (``--spatial-worker``) on the one card, gloo on CUDA tensors, a
+             (1, 2) mesh: each rank holds 304 of the 608 rows, the U-Net
+             exchanges its halo rows, the decode's partials are summed. In
+             f32 and bf16: [train]'s batch-8 loss and gradient, then one
+             warm-up and 2 timed steps with remat off and ``"acts"``; one
+             warm-up and 3 timed ``predict_grid`` requests of 4 tasks of
+             [serve]'s cycle; in bf16 one ``ar_sample`` (8 tasks, 8 blocks)
+             and [al]'s fast mode on its first 16 candidates, 2 placements.
+             Against one process on the whole grid: in f32 the loss within
+             rel 2e-5, every gradient within rtol 5e-4 / atol 5e-5 of its
+             largest and the request within rtol 2e-5 / atol 1e-6 (JAX's
+             bounds); in bf16 finite, the differences printed; the ranks'
+             gradients, maps, samples and placements bitwise equal. Per rank
+             and run: CUDA-event and wall time, halo exchanges and spatial
+             sums (count, bytes, host time), launches (B1 and B2 in every
+             request, the l-gradient in every step), no plain SetConv;
+             each rank's peak memory beside one process's f32 step.
+24. health - ``cli.health.run_health`` on the card: the compile leg (the
+             kernels' load and a tiny B1's first launch), dispatch and a
+             64 MB transfer each way; its JSON report on a line of its own.
 
 The first lines also say whether scipy (with its version), pandas, PyYAML
 and matplotlib import. The last two lines are a JSON object of per-kernel
 results (its launch counts are those of the main-path phases: serve,
 service, sample-serve, ar, al, train, pipeline, validate, cli-train, ddp
-(both ranks), remat, resume, dp-serve (both ranks) and wrf) and the
+(both ranks), remat, resume, dp-serve (both ranks), wrf and spatial (both
+ranks)) and the
 ``{"ok": true, "device": {...}}`` line. Imports only the port, torch, numpy,
 scipy and the standard library.
 """
@@ -261,6 +284,7 @@ import time
 import urllib.error
 import urllib.request
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -379,6 +403,19 @@ DPS_VAR = "temperature_station"
 DPS_WORLD, DPS_TIMEOUT = 2, 300
 DPS_PAD_TASKS, DPS_CHUNK_TASKS = 23, 48
 DPS_RTOL, DPS_ATOL, DPS_AR_RTOL, DPS_AR_ATOL = 2e-5, 1e-6, 5e-4, 1e-5
+# [spatial]: the flagship's 608-row grid in row blocks over 2 ranks on the
+# one card (304 rows each), gloo on CUDA tensors; against one process in
+# f32 the bounds of tests/test_parallel.py's spatial case (the loss rel
+# 2e-5, every gradient rtol 5e-4 / atol 5e-5 of its largest magnitude) and
+# of its sharded forward (rtol 2e-5 / atol 1e-6). 4 tasks of [serve]'s
+# cycle (the decode's partial maps, 74 MB a request in f32, go through the
+# host), [ar]'s chain on 8 tasks, [al]'s fast mode on its first 16
+# candidates
+SPATIAL_WORLD, SPATIAL_TIMEOUT, SPATIAL_STEPS = 2, 300, 2
+SPATIAL_SERVE_TASKS, SPATIAL_AR_TASKS = 4, 8
+SPATIAL_AL_CANDIDATES, SPATIAL_AL_PLACEMENTS = 16, 2
+SPATIAL_LOSS_RTOL, SPATIAL_GRAD_RTOL, SPATIAL_GRAD_ATOL_FRAC = 2e-5, 5e-4, 5e-5
+SPATIAL_RTOL, SPATIAL_ATOL = 2e-5, 1e-6
 # [wrf]: a 4 km curvilinear grid over the NZ extent widened by 0.3 degrees,
 # two 24-hour cycles, regridded onto the DEM coarsened x5 (0.025 degrees)
 WRF_KM, WRF_PAD, WRF_CYCLES, WRF_COARSEN = 4.0, 0.3, 2, 5
@@ -1287,6 +1324,14 @@ def device_ops(trace: Path, top: int = 5) -> tuple[list, float, float]:
     span = (max(float(e["ts"]) + float(e["dur"]) for e in ops)
             - min(float(e["ts"]) for e in ops)) / 1e3
     return [(name, ms, n) for name, (ms, n) in ranked], busy, span
+
+
+def al_candidates():
+    """[al]'s candidates (x-space) and their aux, drawn as ``al_phase``
+    draws them; [spatial] takes the first 16."""
+    rng = np.random.default_rng(3)
+    cands = rng.random((AL_CANDIDATES, 2)).astype(np.float32)
+    return cands, rng.normal(size=(AL_CANDIDATES, 1)).astype(np.float32)
 
 
 def al_phase(dev, model, setconv, setconv_cuda) -> tuple[dict, float]:
@@ -3440,6 +3485,360 @@ def wrf_phase(dev, cfg, setconv, setconv_cuda) -> tuple[dict, dict]:
     return {k: train_counts[k] + val_counts[k] for k in train_counts}, errs
 
 
+def spatial_setting(size: str):
+    """``[spatial]``'s configs (the flagship with ``mesh_axes``, in f32 and
+    bf16, or the card test's small f32 model), processor, grid, aux and
+    tasks: [train]'s batch-8 task, 4 tasks of [serve]'s cycle, [ar]'s AR
+    task on 8 tasks, [al]'s one task."""
+    from deepsensornz_tpu_torch.models.convnp import ConvNPConfig
+
+    dp = make_processor(DPS_VAR)
+    if size == "flagship":
+        cfg = flagship_config()
+        hw, kw, tkw = TARGET_HW, {}, {}
+    else:
+        cfg = ConvNPConfig(unet_channels=(8, 8), likelihood="gnp", internal_density=40,
+                           rank=4, decoder_channels=8, mlp_hidden=8, compute_dtype="float32")
+        hw = (30, 28)
+        kw = dict(base_hw=(12, 11), aux_hw=hw, n_stations=40)
+        tkw = dict(kw, n_targets=20)
+    cfg = dataclasses.replace(cfg, mesh_axes=("data", "spatial"))
+    dem, aux = target_fields(dp, hw, seed=0)
+    d = cfg.internal_density
+    tasks = {"train": train_task(20, N_TRAIN_TASKS, d, **tkw),
+             "serve": cycle_task(1, SPATIAL_SERVE_TASKS, d, **kw),
+             "ar": train_task(75, SPATIAL_AR_TASKS, d, **tkw), "al": train_task(50, 1, d, **tkw)}
+    dtypes = ("float32", "bfloat16") if size == "flagship" else ("float32",)
+    return ({t: dataclasses.replace(cfg, compute_dtype=t) for t in dtypes}, dp, dem, aux, tasks)
+
+
+def spatial_worker(out_dir: str, size: str) -> int:
+    """One rank of ``[spatial]``'s group, started by :func:`worker_group`:
+    gloo on CUDA tensors, every rank on card 0, a (1, 2) mesh, cuDNN's
+    deterministic algorithms. Per dtype: the batch-8 loss and gradient on
+    the mesh (``shard_loss_and_grads``), then with ``remat`` off and
+    ``"acts"`` one warm-up and ``SPATIAL_STEPS`` timed train steps; one
+    warm-up and ``N_REQUESTS`` timed ``predict_grid`` requests of 4 tasks;
+    with the last dtype one ``ar_sample`` and one fast AL run. Each run's
+    wall and CUDA-event time, its halo exchanges and spatial sums (count,
+    bytes, host time), its launches; each step config's peak memory; the
+    plain SetConv calls on the card. Writes ``out_dir/rank{r}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    import_port()
+    from deepsensornz_tpu_torch.al import GreedyAlgorithm
+    from deepsensornz_tpu_torch.infer import ar
+    from deepsensornz_tpu_torch.infer.predict import Predictor
+    from deepsensornz_tpu_torch.ops import _build, setconv, setconv_cuda
+    from deepsensornz_tpu_torch.parallel import halo
+    from deepsensornz_tpu_torch.parallel.mesh import make_mesh, mesh_device, row_block
+    from deepsensornz_tpu_torch.parallel.multihost import initialize_multihost
+    from deepsensornz_tpu_torch.train.trainer import (init_state, make_train_step,
+                                                      shard_loss_and_grads)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    info = initialize_multihost(backend="gloo")
+    mesh = make_mesh(1, SPATIAL_WORLD, device_type="cuda")
+    dev = mesh_device(mesh)
+    cfgs, dp, dem, aux, tasks = spatial_setting(size)
+    first = next(iter(cfgs.values()))
+    out = {"info": info, "device": str(dev), "runs": [],
+           "block": row_block(mesh, tasks["train"].x1g.shape[0], 2 ** len(first.unet_channels))}
+
+    def run(name, fn):
+        """One timed call; its times, halo traffic and launches under ``name``."""
+        halo.reset_stats()
+        setconv_cuda.reset_launch_counts()
+        res, ms, wall = timed(fn)
+        out["runs"].append({"name": name, "ms": ms, "s": wall, "halo": dict(halo.stats),
+                            "counts": setconv_cuda.launch_counts()})
+        return res
+
+    cands, cand_aux = al_candidates()
+    with deterministic_cudnn(), plain_calls_on_card(setconv) as plain:
+        for dtype, cfg in cfgs.items():
+            res = {}
+            for remat in (False, True):
+                model = build_model(dataclasses.replace(cfg, remat=remat, remat_policy="acts"),
+                                    tasks["train"], seed=0, device=dev)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                if not remat:
+                    loss, grads = run(f"{dtype} loss and gradient",
+                                      lambda: shard_loss_and_grads(model, tasks["train"], mesh))
+                    res["loss"], res["grads"] = loss.cpu(), {k: g.cpu() for k, g in grads.items()}
+                    del grads
+                step = make_train_step(model, mesh=mesh)
+                state = init_state(model)
+                label = "acts" if remat else "off"
+                for i in range(1 + SPATIAL_STEPS):
+                    state, loss = run(f"{dtype} remat {label} step {i}",
+                                      lambda: step(state, tasks["train"], TRAIN_LR))
+                res[f"peak_{label}"] = torch.cuda.max_memory_allocated(dev)
+                res[f"step_loss_{label}"] = float(loss)
+                del model, state, step
+            model = build_model(cfg, tasks["train"], seed=0, device=dev)
+            pred = Predictor(model, dp, DPS_VAR)
+            for i in range(1 + N_REQUESTS):
+                grid = run(f"{dtype} grid {i}", lambda: pred.predict_grid(
+                    tasks["serve"], dem, aux_at_targets=aux, mesh=mesh))
+            res["pred"] = grid
+            res["grid"] = {k: grid[k].data for k in ("mean", "std")}
+            if dtype == list(cfgs)[-1]:
+                gen = torch.Generator(device=dev).manual_seed(0)
+                res["ar"] = run(f"{dtype} ar_sample", lambda: ar.ar_sample(
+                    model, tasks["ar"], n_samples=1, n_blocks=AR_BLOCKS, generator=gen,
+                    mesh=mesh))
+                alg = GreedyAlgorithm(model, mode="fast", mesh=mesh)
+                res["al"] = run(f"{dtype} al fast", lambda: alg.run(
+                    tasks["al"], cands[:SPATIAL_AL_CANDIDATES],
+                    n_placements=SPATIAL_AL_PLACEMENTS,
+                    candidate_aux=cand_aux[:SPATIAL_AL_CANDIDATES]))["placements"]
+            out[dtype] = res
+            del model, pred
+        out["plain"] = dict(plain)
+    torch.save(out, Path(out_dir) / f"rank{info['process_index']}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def spatial_group(out_dir: Path, size: str) -> list[dict]:
+    """``SPATIAL_WORLD`` :func:`spatial_worker` processes on card 0."""
+    return worker_group("--spatial-worker", out_dir, size, SPATIAL_WORLD, SPATIAL_TIMEOUT)
+
+
+def spatial_reference(dev, cfgs, dp, dem, aux, tasks) -> dict:
+    """One process on the whole grid: per dtype the batch-8 loss and
+    gradient and the 4-task request; the f32 step's peak memory; with the
+    last dtype an ``ar_sample`` and the fast AL run from the same seeds."""
+    import torch
+
+    from deepsensornz_tpu_torch.al import GreedyAlgorithm
+    from deepsensornz_tpu_torch.infer import ar
+    from deepsensornz_tpu_torch.infer.predict import Predictor
+    from deepsensornz_tpu_torch.train.trainer import init_state, make_train_step
+
+    cands, cand_aux = al_candidates()
+    ref = {}
+    with deterministic_cudnn():
+        for dtype, cfg in cfgs.items():
+            model = build_model(dataclasses.replace(cfg, mesh_axes=None), tasks["train"], seed=0,
+                                device=dev)
+            batch = tasks["train"].to(dev)
+            loss = model.loss(batch)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            res = {"loss": loss.detach().cpu(),
+                   "grads": {k: g.cpu() for (k, _), g in zip(model.named_parameters(), grads)}}
+            del loss, grads
+            if dtype == "float32":
+                # the same gradient with every convolution a cuBLAS GEMM: how
+                # far one process's own f32 gradient moves with the algorithm
+                with torch.backends.cudnn.flags(enabled=False):
+                    grads = torch.autograd.grad(model.loss(batch), list(model.parameters()))
+                res["grads_gemm"] = {k: g.cpu()
+                                     for (k, _), g in zip(model.named_parameters(), grads)}
+                del grads
+            if dtype == "float32":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                make_train_step(model)(init_state(model), batch, TRAIN_LR)
+                torch.cuda.synchronize()
+                res["peak"] = torch.cuda.max_memory_allocated(dev)
+            grid = Predictor(model, dp, DPS_VAR).predict_grid(tasks["serve"], dem,
+                                                              aux_at_targets=aux)
+            res["grid"] = {k: grid[k].data for k in ("mean", "std")}
+            if dtype == list(cfgs)[-1]:
+                gen = torch.Generator(device=dev).manual_seed(0)
+                res["ar"] = ar.ar_sample(model, tasks["ar"], n_samples=1, n_blocks=AR_BLOCKS,
+                                         generator=gen)
+                res["al"] = GreedyAlgorithm(model, mode="fast").run(
+                    tasks["al"], cands[:SPATIAL_AL_CANDIDATES],
+                    n_placements=SPATIAL_AL_PLACEMENTS,
+                    candidate_aux=cand_aux[:SPATIAL_AL_CANDIDATES])["placements"]
+            ref[dtype] = res
+            del model, batch
+    torch.cuda.empty_cache()
+    return ref
+
+
+def grad_agreement(got: dict, want: dict, widen: Optional[dict] = None) -> tuple:
+    """The largest difference of any gradient over its tensor's largest
+    magnitude, the count of elements outside rtol ``SPATIAL_GRAD_RTOL`` /
+    atol ``SPATIAL_GRAD_ATOL_FRAC`` of their tensor's largest (the atol
+    widened per tensor by ``widen``, a fraction of its largest), and per
+    tensor with any outside, (its largest difference over its largest, the
+    count, its size)."""
+    worst, n_out, where = 0.0, 0, {}
+    for k, w in want.items():
+        g, w = got[k].double(), w.double()
+        scale = max(float(w.abs().max()), 1e-8)
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()) / scale)
+        atol = (SPATIAL_GRAD_ATOL_FRAC + (widen or {}).get(k, 0.0)) * scale
+        n = int((d > SPATIAL_GRAD_RTOL * w.abs() + atol).sum())
+        n_out += n
+        if n:
+            where[k] = (float(d.max()) / scale, n, w.numel())
+    return worst, n_out, where
+
+
+def spread(a: dict, b: dict) -> dict:
+    """Per tensor, the largest difference of two versions of one gradient
+    over its largest magnitude."""
+    return {k: float((a[k].double() - b[k].double()).abs().max())
+            / max(float(b[k].abs().max()), 1e-8) for k in b}
+
+
+def close_maps(got, want) -> bool:
+    """NaN where ``want`` is NaN (the sea), and within rtol
+    ``SPATIAL_RTOL`` / atol ``SPATIAL_ATOL`` elsewhere."""
+    sea = np.isnan(want)
+    return bool(np.array_equal(np.isnan(got), sea)) and within(
+        got[~sea], want[~sea], SPATIAL_RTOL, SPATIAL_ATOL)[1]
+
+
+def spatial_phase(dev, setconv_cuda, size: str = "flagship") -> dict:
+    """Phase 23: the spatial partition of the flagship's internal grid, 2
+    ranks of this script (``--spatial-worker``) on the one card, each with
+    304 of the 608 rows: training, serving, AR and AL against one process
+    on the whole grid. Returns the ranks' launch counts, summed."""
+    import torch
+
+    t_phase = time.perf_counter()
+    cfgs, dp, dem, aux, tasks = spatial_setting(size)
+    ref = spatial_reference(dev, cfgs, dp, dem, aux, tasks)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spatial_group(Path(tmp), size)
+    group_s = time.perf_counter() - t0
+    bad = []
+    smi = nvidia_smi_line()
+    for r, out in enumerate(ranks):
+        say("spatial", f"rank {r} on {out['device']} holds rows {out['block']} of "
+            f"{tasks['train'].x1g.shape[0]} ({SPATIAL_WORLD} processes, gloo, one card: a "
+            f"correctness check, not a scaling figure; {smi})")
+        for run in out["runs"]:
+            h = run["halo"]
+            say("spatial", f"rank {r} {run['name']}: {run['ms']:.1f} ms (CUDA events), "
+                f"{run['s']:.4f} s wall; halo exchanges {h['exchanges']}, "
+                f"{h['exchange_bytes']} bytes gathered, {1e3 * h['exchange_s']:.1f} ms; spatial "
+                f"sums {h['sums']}, {h['sum_bytes']} bytes, {1e3 * h['sum_s']:.1f} ms; launches "
+                f"{run['counts']}")
+            c = run["counts"]
+            if " grid " in f"{run['name']} " and (c["encode_offgrid"] < 1 or c["decode_grid"] < 1):
+                bad.append(f"rank {r} {run['name']}: B1 or B2 not launched ({c})")
+            if " step " in run["name"] and c["encode_offgrid_grad"] < 1:
+                bad.append(f"rank {r} {run['name']}: the l-gradient not launched ({c})")
+            if " step " in run["name"] and h["exchanges"] < 1:
+                bad.append(f"rank {r} {run['name']}: no halo exchange")
+        peaks = "; ".join(f"{d} remat {m} {out[d][f'peak_{m}'] / 2**30:.2f} GiB"
+                          for d in cfgs for m in ("off", "acts"))
+        say("spatial", f"rank {r} peak memory: {peaks} (one process, the whole grid, f32 "
+            f"remat off: {ref['float32']['peak'] / 2**30:.2f} GiB); plain SetConv calls on the "
+            f"card {out['plain']}")
+        if any(out["plain"].values()):
+            bad.append(f"rank {r} called a plain SetConv on the card: {out['plain']}")
+    for dtype in cfgs:
+        want = ref[dtype]
+        for r, out in enumerate(ranks):
+            got = out[dtype]
+            rel = abs(float(got["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+            worst, n_out, where = grad_agreement(got["grads"], want["grads"])
+            g_diff = {k: float(np.nanmax(np.abs(got["grid"][k] - want["grid"][k])))
+                      for k in ("mean", "std")}
+            g_ok = all(close_maps(got["grid"][k], want["grid"][k]) for k in ("mean", "std"))
+            finite = (np.isfinite(float(got["loss"])) and all(
+                bool(torch.isfinite(g).all()) for g in got["grads"].values()))
+            n_all = sum(g.numel() for g in want["grads"].values())
+            say("spatial", f"{dtype} rank {r} against one process on the whole grid: loss "
+                f"{float(got['loss']):.7f} vs {float(want['loss']):.7f} (rel {rel:.2e}); "
+                f"gradients differ by at most {worst:.2e} of each tensor's largest, {n_out} of "
+                f"{n_all} elements outside rtol {SPATIAL_GRAD_RTOL} / atol "
+                f"{SPATIAL_GRAD_ATOL_FRAC} of their tensor's largest"
+                + (f" ({where})" if r == 0 and dtype == "float32" else "")
+                + f"; the 4-task request's largest difference {g_diff} (within rtol "
+                f"{SPATIAL_RTOL} / atol {SPATIAL_ATOL}: {g_ok}); step losses off "
+                f"{got['step_loss_off']:.6f}, acts {got['step_loss_acts']:.6f}")
+            grads_ok = True
+            if dtype == "float32":
+                # cuDNN picks its convolution algorithms by shape (so others for
+                # 304 rows than for 608); the coarse levels' weight gradients
+                # sum ~10^4 cancelling products, so one process's own f32
+                # gradient moves with the algorithm: the bound is JAX's, its
+                # atol widened per tensor by that spread
+                alg = spread(want["grads"], want["grads_gemm"])
+                _, a_out, _ = grad_agreement(want["grads_gemm"], want["grads"])
+                _, w_out, w_where = grad_agreement(got["grads"], want["grads"], alg)
+                grads_ok = w_out == 0
+                say("spatial", f"f32 rank {r}: one process's gradient with every convolution a "
+                    f"GEMM (cuDNN off) differs from its cuDNN gradient by at most "
+                    f"{max(alg.values()):.2e} of each tensor's largest, {a_out} elements "
+                    f"outside rtol {SPATIAL_GRAD_RTOL} / atol {SPATIAL_GRAD_ATOL_FRAC}; the "
+                    f"partition's gradient within that bound widened per tensor by that spread: "
+                    f"{w_out} elements outside {w_where or ''}")
+            if not finite:
+                bad.append(f"{dtype} rank {r}: the loss or a gradient is not finite")
+            if dtype == "float32" and (rel > SPATIAL_LOSS_RTOL or not grads_ok or not g_ok):
+                bad.append(f"f32 rank {r} off one process: loss rel {rel:.2e}, gradients "
+                           f"{worst:.2e}, request {g_diff}")
+            check_prediction(got["pred"], dem, SPATIAL_SERVE_TASKS)
+            if "ar" in got:
+                mask = tasks["ar"].yt_mask.numpy() > 0
+                ar_diff = float(np.abs(got["ar"][0][mask] - want["ar"][0][mask]).max())
+                same_al = bool(np.array_equal(got["al"], want["al"]))
+                say("spatial", f"{dtype} rank {r}: ar_sample's largest difference from one "
+                    f"process {ar_diff:.3e}; AL placements {got['al'].tolist()}, one process's "
+                    f"{want['al'].tolist()} (equal: {same_al})")
+                if not np.isfinite(got["ar"][0][mask]).all():
+                    bad.append(f"{dtype} rank {r}: the AR sample is not finite")
+                if len({tuple(p) for p in got["al"].tolist()}) != SPATIAL_AL_PLACEMENTS:
+                    bad.append(f"{dtype} rank {r}: AL placed a candidate twice")
+        for key in ("grid", "ar", "al"):
+            if key in ranks[0][dtype] and not same_arrays(ranks[0][dtype][key],
+                                                          ranks[1][dtype][key]):
+                bad.append(f"{dtype}: the ranks' {key} differ")
+        if not all(torch.equal(ranks[0][dtype]["grads"][k], ranks[1][dtype]["grads"][k])
+                   for k in ranks[0][dtype]["grads"]):
+            bad.append(f"{dtype}: the ranks' summed gradients differ")
+    say("spatial", f"the group of {SPATIAL_WORLD} {group_s:.1f} s wall, the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    counts = dict.fromkeys(KERNELS, 0)
+    for out in ranks:
+        for run in out["runs"]:
+            for k in counts:
+                counts[k] += run["counts"][k]
+    return counts
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def health_phase() -> dict:
+    """Phase 24: the port's health check on the card
+    (``cli.health.run_health``): the compile leg is the kernels' build and
+    load (already built: the load) and a tiny B1's first launch. Prints its
+    JSON on a line of its own."""
+    from deepsensornz_tpu_torch.cli.health import run_health
+
+    report = run_health(reps=TIMING_REPS, transfer_mb=64.0)
+    say("health", f"run_health on the card ({nvidia_smi_line()}); compile leg: the kernels' "
+        f"load and a tiny B1's first launch; transfer leg: 64 MB each way, pageable")
+    print(json.dumps(report), flush=True)
+    if report["platform"] != "gpu" or report["dispatch_ms_p50"] <= 0:
+        raise AssertionError(f"run_health did not measure the card: {report}")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -3455,9 +3854,7 @@ def main() -> int:
     # -- 1. device ---------------------------------------------------------------
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say("device", f"{kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
@@ -3549,12 +3946,14 @@ def main() -> int:
     wrf_counts, wrf_errs = wrf_phase(dev, cfg, setconv, setconv_cuda)
     for name, err in wrf_errs.items():
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    spatial_counts = spatial_phase(dev, setconv_cuda)
+    health_phase()
 
     phases = {"serve": serve_counts, "service": service_counts, "sample-serve": sample_counts,
               "ar": ar_counts, "al": al_counts, "train": train_counts,
               "pipeline": pipeline_counts, "validate": validate_counts, "cli-train": cli_counts,
               "ddp": ddp_counts, "remat": remat_counts, "resume": resume_counts,
-              "dp-serve": dp_serve_counts, "wrf": wrf_counts}
+              "dp-serve": dp_serve_counts, "wrf": wrf_counts, "spatial": spatial_counts}
     launches = {name: sum(c[name] for c in phases.values()) for name in KERNELS}
     say("launches", "; ".join(f"{k} {v}" for k, v in phases.items()))
     say("total", f"{time.perf_counter() - t_start:.1f} s wall, the kernels' build included")
@@ -3572,4 +3971,6 @@ if __name__ == "__main__":
         sys.exit(ddp_worker(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--dp-serve-worker"]:
         sys.exit(dp_serve_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--spatial-worker"]:
+        sys.exit(spatial_worker(*sys.argv[2:4]))
     sys.exit(main())

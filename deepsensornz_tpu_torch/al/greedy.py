@@ -58,19 +58,23 @@ class GreedyAlgorithm:
     ``model`` is the port's ``ConvNP`` with its weights; the placement runs
     on the model's device. ``ar_context_idx`` picks the point context set
     that receives the placements; ``mode`` is ``"fast"`` or (anything else,
-    as in the JAX package) exhaustive.
+    as in the JAX package) exhaustive. ``mesh``: a mesh whose spatial axis
+    partitions the model's internal grid (``ConvNPConfig.mesh_axes``; JAX
+    runs its AL chain under ``jax.set_mesh``); every rank runs the same
+    chain and places the same candidates.
     """
 
     def __init__(self, model, acquisition: Optional[Callable] = None,
-                 ar_context_idx: int = -1, mode: str = "exhaustive"):
+                 ar_context_idx: int = -1, mode: str = "exhaustive", mesh=None):
         self.model = model
+        self.mesh = mesh
         self.acquisition = acquisition or Stddev()
         self.ar_context_idx = ar_context_idx
         self.mode = mode
         self.lik = model.cfg.make_likelihood()
 
     def _predict(self, task: TaskBatch) -> tuple[torch.Tensor, torch.Tensor]:
-        return self.lik.mean_std(self.model(task))
+        return self.lik.mean_std(self.model(task, mesh=self.mesh))
 
     # -- public ---------------------------------------------------------------------
 

@@ -3,7 +3,7 @@
 Counterpart of ``deepsensornz_tpu/config.py``: the station registry, the
 canonical variable names and their per-source short names, the
 per-variable likelihoods and normalisation methods, the geographic
-extents, the ConvNP defaults, the default training recipe, and the
+extents, the named locations the plots zoom to, the ConvNP defaults, the default training recipe, and the
 ``profile`` tables with ``apply_profile``.
 """
 
@@ -100,6 +100,24 @@ EXTENTS = {
     "north_island": {"minlat": -41.7, "maxlat": -34.05, "minlon": 172.5, "maxlon": 178.70},
     "south_island": {"minlat": -47.95, "maxlat": -40.3, "minlon": 165.75, "maxlon": 174.5},
     "christchurch": {"minlat": -44.2, "maxlat": -43.0, "minlon": 171.0, "maxlon": 173.2},
+}
+
+# Named locations (lat, lon) the plots zoom to and mark.
+LOCATION_LATLON = {
+    "auckland": (-36.8485, 174.7633),
+    "wellington": (-41.2866, 174.7756),
+    "christchurch": (-43.5321, 172.6362),
+    "dunedin": (-45.8788, 170.5028),
+    "queenstown": (-45.0312, 168.6626),
+    "hamilton": (-37.7870, 175.2793),
+    "tauranga": (-37.6878, 176.1651),
+    "napier": (-39.4928, 176.9120),
+    "nelson": (-41.2706, 173.2840),
+    "invercargill": (-46.4132, 168.3538),
+    "taupo": (-38.6857, 176.0702),
+    "hokitika": (-42.7166, 170.9632),
+    "milford_sound": (-44.6717, 167.9256),
+    "mt_cook": (-43.7340, 170.0966),
 }
 
 # ConvNP model defaults.

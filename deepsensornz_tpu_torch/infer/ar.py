@@ -19,6 +19,8 @@ runs the chain on its rows; the visit orders and sample draws are those one
 process makes for the whole batch (each rank draws them all and keeps its
 rows, :func:`sample_rows`), so the samples do not depend on the number of
 ranks, and the ranks' samples are gathered on the device in rank order.
+The ranks of a spatial group run the same rows and draw the same samples;
+a model with ``mesh_axes`` runs its grid in row blocks over that axis.
 """
 
 from __future__ import annotations
@@ -177,7 +179,7 @@ def run_chain(model, task_ext: TaskBatch, order: torch.Tensor, generator: torch.
         mask_blk = task_ext.yt_mask[rows, blk].float() * dup_keep
         probe = dataclasses.replace(task_ext, points=tuple(points), xt=xt_blk, yt=None,
                                     yt_mask=mask_blk, yt_aux=aux_blk)
-        raw = lik.rescale_raw(model(probe), std_scale)           # (B, block, K)
+        raw = lik.rescale_raw(model(probe, mesh=mesh), std_scale)  # (B, block, K)
         sample = (lik.sample(raw, generator, 1) if mesh is None    # (B, block, dy)
                   else sample_rows(lik, raw, generator, 1, mesh, batch))[0]
         if n_extra == 0:

@@ -25,6 +25,9 @@ rows, the device outputs are gathered in rank order and the pad rows
 dropped; the host steps then run as in one process, and every rank
 returns the whole result. Sample draws are the whole batch's on every rank
 (``infer.ar.sample_rows``), so they do not depend on the number of ranks.
+On a mesh with a spatial axis, every rank of a spatial group runs the same
+rows and draws the same samples, and a model with ``mesh_axes`` runs its
+internal grid in row blocks over that axis (``models.convnp``).
 
 Every request runs under ``torch.inference_mode()``. The transfer modes
 shrink what crosses the host link: ``transfer_dtype`` casts the finished
@@ -430,7 +433,7 @@ class Predictor:
         B, Ht, Wt = task.batch_size, len(xt1), len(xt2)
         aux_d = None if aux is None else torch.from_numpy(aux).to(dev).expand(B, *aux.shape)
         raw = self.model(task, target_grid=(torch.from_numpy(xt1).to(dev),
-                                            torch.from_numpy(xt2).to(dev), aux_d))
+                                            torch.from_numpy(xt2).to(dev), aux_d), mesh=mesh)
         raw = lik.rescale_raw(raw, self.std_scale).reshape(B, Ht * Wt, -1)
         mean, std = lik.mean_std(raw)
         out = {k: v for k, v in (("mean", mean), ("std", std)) if k in outputs}
@@ -461,7 +464,7 @@ class Predictor:
         with torch.inference_mode():
             rows = task if mesh is None else take(task, rank_indices(mesh, np.arange(
                 task.batch_size)))
-            raw = lik.rescale_raw(self.model(rows.to(self.device)), self.std_scale)
+            raw = lik.rescale_raw(self.model(rows.to(self.device), mesh=mesh), self.std_scale)
             mean, std = lik.mean_std(raw)
             out = {"mean": mean, "std": std}
             if lik.name == "bernoulli-gamma":

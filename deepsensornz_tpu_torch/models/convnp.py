@@ -12,6 +12,16 @@ plain versions. The device decides, not a config field. The gridded-context
 encode and the off-grid decode are plain tensor contractions, as they are
 XLA einsums in the JAX package.
 
+With ``mesh_axes`` set and a mesh whose spatial axis has more than one
+rank (``forward(..., mesh=)``), the internal grid is partitioned into row
+blocks, as JAX's ``P(batch, spatial, None, None)`` constraint partitions
+it: each rank encodes its block's rows (``x1g[a:b]``, ``x2g`` whole; the
+density normalisation is per cell), runs the U-Net on them with halo
+exchanges (:mod:`..parallel.halo`), and decodes a partial over them, the
+numerator and the normaliser both; :func:`..parallel.halo.spatial_sum`
+adds the partials over the spatial group, and the head, the likelihood and
+the loss run replicated on the sum.
+
 The module is built explicitly from a task's shapes
 (:meth:`ConvNP.from_task`); its ``state_dict`` names mirror the flax tree
 (``unet.down_0.weight`` ↔ ``params/unet/down_0/kernel``, see
@@ -33,7 +43,10 @@ from deepsensornz_tpu_torch.models.likelihoods import get_likelihood
 from deepsensornz_tpu_torch.models.unet import REMAT_POLICIES, UNet, lecun_normal_
 from deepsensornz_tpu_torch.ops import setconv_cuda
 from deepsensornz_tpu_torch.ops.grids import default_lengthscale
-from deepsensornz_tpu_torch.ops.setconv import setconv_decode_offgrid, setconv_encode_grid
+from deepsensornz_tpu_torch.ops.setconv import (
+    DENSITY_EPS, rbf, setconv_decode_offgrid, setconv_decode_offgrid_parts, setconv_encode_grid)
+from deepsensornz_tpu_torch.parallel.halo import SpatialContext, spatial_context, spatial_sum
+from deepsensornz_tpu_torch.parallel.mesh import DATA_AXIS, SPATIAL_AXIS, spatial_shard
 from deepsensornz_tpu_torch.task.task import TaskBatch
 
 
@@ -45,7 +58,9 @@ class ConvNPConfig:
     nothing. ``remat`` recomputes the U-Net in the backward, keeping what
     ``remat_policy`` names (:meth:`..models.unet.UNet.raw_remat`): None
     nothing, ``"acts"`` each level's output, ``"dots"`` the conv and
-    matmul outputs."""
+    matmul outputs. ``mesh_axes`` (data axis, spatial axis) partitions the
+    internal grid over the spatial axis of the mesh a caller passes
+    (module docstring); saved configs drop it, as the JAX package's do."""
 
     unet_channels: tuple = (64, 64, 64, 64)
     likelihood: str = "gnp"
@@ -126,8 +141,6 @@ class ConvNP(nn.Module):
                  point_channels: Sequence[int], aux_channels: int = 0, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if cfg.mesh_axes is not None:
-            raise NotImplementedError("mesh_axes (spatial sharding) is not ported")
         if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
                              "use None/'dots'/'acts'")
@@ -188,30 +201,74 @@ class ConvNP(nn.Module):
 
     # -- forward -------------------------------------------------------------------
 
-    def encode(self, task: TaskBatch) -> torch.Tensor:
-        """Every context set on the internal grid, concatenated: (B, H, W, Σ(C+1))."""
-        enc = [setconv_encode_grid(task.x1g, task.x2g, g.x1, g.x2, g.y,
+    def _partitioned(self, mesh) -> bool:
+        """Whether ``mesh`` partitions the internal grid: ``mesh_axes`` set
+        and more than one rank on its spatial axis."""
+        if mesh is None or self.cfg.mesh_axes is None:
+            return False
+        if tuple(self.cfg.mesh_axes) != (DATA_AXIS, SPATIAL_AXIS):
+            raise ValueError(f"mesh_axes {self.cfg.mesh_axes}: the port's meshes name their "
+                             f"axes {(DATA_AXIS, SPATIAL_AXIS)}")
+        return spatial_shard(mesh)[1] > 1
+
+    def spatial_context(self, task: TaskBatch, mesh) -> Optional[SpatialContext]:
+        """Where this rank's block of ``task``'s internal grid sits on
+        ``mesh``; None where the grid is whole."""
+        if not self._partitioned(mesh):
+            return None
+        return spatial_context(mesh, task.x1g.shape[0], 2 ** len(self.cfg.unet_channels))
+
+    def partial_gradients(self, mesh) -> set[str]:
+        """The parameters whose gradient each rank of ``mesh``'s spatial axis
+        holds only its block's share of: those used before the spatial sum
+        (the encoder's length-scales, the U-Net, ``ls_decoder``). Those of
+        the head, used after it, have the whole gradient on every spatial
+        rank. Empty where the grid is not partitioned."""
+        if not self._partitioned(mesh):
+            return set()
+        return {k for k, _ in self.named_parameters() if not k.startswith("head_")}
+
+    def encode(self, task: TaskBatch, spatial: Optional[SpatialContext] = None) -> torch.Tensor:
+        """Every context set on the internal grid, concatenated: (B, H, W, Σ(C+1));
+        with ``spatial``, on this rank's block of rows."""
+        x1g = task.x1g if spatial is None else task.x1g[spatial.start:spatial.stop]
+        enc = [setconv_encode_grid(x1g, task.x2g, g.x1, g.x2, g.y,
                                    self.lengthscale(f"ls_grid_{i}"), g.mask)
                for i, g in enumerate(task.grids)]
-        enc += [setconv_cuda.encode_offgrid(task.x1g, task.x2g, p.x, p.y, p.mask,
+        enc += [setconv_cuda.encode_offgrid(x1g, task.x2g, p.x, p.y, p.mask,
                                             self.lengthscale(f"ls_points_{i}"))
                 for i, p in enumerate(task.points)]
         return torch.cat(enc, dim=-1)
 
-    def features(self, task: TaskBatch) -> torch.Tensor:
+    def features(self, task: TaskBatch, spatial: Optional[SpatialContext] = None) -> torch.Tensor:
         """U-Net features on the internal grid, NHWC (B, H, W, decoder_channels),
         in the U-Net's compute dtype: the gridded decode kernel reads bf16
-        features as they are (their f32 widening holds the same values)."""
-        h = self.encode(task).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
+        features as they are (their f32 widening holds the same values).
+        With ``spatial``, this rank's block of rows."""
+        h = self.encode(task, spatial).permute(0, 3, 1, 2)  # NCHW view, channels-last memory
         if self.cfg.remat and torch.is_grad_enabled():
-            f = self.unet.raw_remat(h, self.cfg.remat_policy)
+            f = self.unet.raw_remat(h, self.cfg.remat_policy, spatial)
         else:
-            f = self.unet.raw(h)
+            f = self.unet.raw(h, spatial=spatial)
         return f.permute(0, 2, 3, 1)
 
-    def forward(self, task: TaskBatch, target_grid: Optional[tuple] = None) -> torch.Tensor:
+    def _decode_grid(self, task: TaskBatch, f, xt1, xt2, ls, sp) -> torch.Tensor:
+        """The gridded decode of features f; on a block, the block's partial
+        normalised by the whole grid's row sums, summed over the group."""
+        if sp is None:
+            return setconv_cuda.decode_grid(task.x1g, task.x2g, f, xt1, xt2, ls)
+        row_sums = rbf(xt1[:, None], task.x1g[None, :], ls).sum(-1)
+        return spatial_sum(setconv_cuda.decode_grid(
+            task.x1g[sp.start:sp.stop], task.x2g, f, xt1, xt2, ls, row_sums=row_sums), sp)
+
+    def forward(self, task: TaskBatch, target_grid: Optional[tuple] = None,
+                mesh=None) -> torch.Tensor:
+        """``mesh``: the mesh whose spatial axis partitions the internal
+        grid, where ``mesh_axes`` is set (module docstring); every rank of
+        a spatial group passes the same task rows and gets the same output."""
         cfg = self.cfg
-        f = self.features(task)
+        sp = self.spatial_context(task, mesh)
+        f = self.features(task, sp)
         ls_dec = self.lengthscale("ls_decoder")
         if target_grid is None:
             aux = task.yt_aux
@@ -229,15 +286,20 @@ class ConvNP(nn.Module):
         if hoist:
             # the decode is linear in f: decode(f) @ W == decode(f @ W)
             g = (f.float() @ k0[:, :dc].T).contiguous()
-            z = setconv_cuda.decode_grid(task.x1g, task.x2g, g, xt1, xt2, ls_dec)
+            z = self._decode_grid(task, g, xt1, xt2, ls_dec, sp)
             if aux is not None:
                 z = z + aux.float() @ k0[:, dc:].T
             z = z + b0
         else:
-            if target_grid is None:
+            if target_grid is not None:
+                dec = self._decode_grid(task, f, xt1, xt2, ls_dec, sp)
+            elif sp is None:
                 dec = setconv_decode_offgrid(task.x1g, task.x2g, f.float(), task.xt, ls_dec)
             else:
-                dec = setconv_cuda.decode_grid(task.x1g, task.x2g, f, xt1, xt2, ls_dec)
+                num, z = setconv_decode_offgrid_parts(task.x1g[sp.start:sp.stop], task.x2g,
+                                                      f.float(), task.xt, ls_dec)
+                both = spatial_sum(torch.cat([num, z[..., None]], -1), sp)
+                dec = both[..., :-1] / (both[..., -1:] + DENSITY_EPS)
             if aux is not None:
                 dec = torch.cat([dec, aux.float()], dim=-1)
             z = F.linear(dec, k0, b0)
@@ -253,7 +315,7 @@ class ConvNP(nn.Module):
         return raw
 
     def loss(self, task: TaskBatch, anchor_scale=1.0,
-             denominators: Optional[torch.Tensor] = None) -> torch.Tensor:
+             denominators: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
         """Normalised NLL at ``task.xt`` plus ``anchor_weight() · anchor_scale``
         times the masked MSE of the predictive mean (a 0-d tensor).
         ``anchor_scale`` may change from call to call (an anchor decayed
@@ -264,8 +326,10 @@ class ConvNP(nn.Module):
         batch's count of valid tasks and the MSE by its count of valid
         targets, so the shards' losses (and gradients) sum to the whole
         batch's; averaging per-shard means would not, wherever the shards
-        hold different numbers of valid tasks."""
-        raw = self(task)
+        hold different numbers of valid tasks. ``mesh``: as for
+        :meth:`forward`; the loss is the same on every rank of a spatial
+        group."""
+        raw = self(task, mesh=mesh)
         lik = self.cfg.make_likelihood()
         n_tasks = None if denominators is None else denominators[0]
         out = lik.nll(raw, task.yt, task.yt_mask, n_tasks)

@@ -21,6 +21,13 @@ padding ``k-1-pad_a`` and the surplus trailing row/column cropped.
 Tensors are NCHW in PyTorch's sense; the model keeps them in
 ``torch.channels_last`` memory, so an NHWC tensor enters and leaves
 without a copy.
+
+Given a spatial context (:class:`..parallel.halo.SpatialContext`: the
+spatial group and the row blocks), the U-Net runs on this rank's block of
+rows: each convolution with k > 1 takes its halo rows from the other blocks
+(:func:`..parallel.halo.halo`), as many as its kernel, stride and padding
+read past the block, and gives exactly the block's rows of the whole
+grid's convolution; the 1×1 stem and head exchange nothing.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+from deepsensornz_tpu_torch.parallel.halo import conv_halo, halo, transpose_halo
 
 REMAT_POLICIES = (None, "acts", "dots")
 # what remat_policy="dots" keeps: the convolutions' and products' outputs
@@ -69,13 +78,23 @@ class Conv(nn.Conv2d):
         lecun_normal_(self.weight, cin * k * k, generator)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        """``sp``: the spatial context at x's level; x is then the block's
+        rows, and so is the output (the block's rows of the whole conv)."""
         k, s = self.kernel_size[0], self.stride[0]
-        (hl, hh), (wl, wh) = _same_pads(x.shape[2], k, s), _same_pads(x.shape[3], k, s)
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        wl, wh = _same_pads(x.shape[3], k, s)
+        if sp is not None:
+            # the halo stands in for the rows' padding: SAME pads of the whole grid
+            x = halo(x, sp, *conv_halo(k, s, _same_pads(sp.rows, k, s)[0]))
+            if wl == wh:
+                return F.conv2d(x, w, b, stride=s, padding=(0, wl))
+            return F.conv2d(F.pad(x, (wl, wh, 0, 0)), w, b, stride=s)
+        hl, hh = _same_pads(x.shape[2], k, s)
         if s == 1 and hl == hh and wl == wh:
-            return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=hl)
+            return F.conv2d(x, w, b, padding=hl)
         x = F.pad(x, (wl, wh, hl, hh))
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=s)
+        return F.conv2d(x, w, b, stride=s)
 
 
 class ConvTranspose(nn.ConvTranspose2d):
@@ -88,16 +107,29 @@ class ConvTranspose(nn.ConvTranspose2d):
         lecun_normal_(self.weight, cin * k * k, generator)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        """``sp``: the spatial context at x's level; x is then the block's
+        rows, and the output the block's rows at the level above."""
         k = self.kernel_size[0]
         pad_a, pad_b = _transpose_pads(k)
         extra = pad_b - pad_a  # >0: pad at the end, <0: crop at the end
-        y = F.conv_transpose2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                               stride=2, padding=k - 1 - pad_a,
-                               output_padding=max(extra, 0))
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        p = k - 1 - pad_a
+        if sp is not None:
+            above, below, first = transpose_halo(k, 2, p)
+            h = x.shape[2]
+            y = F.conv_transpose2d(halo(x, sp, above, below), w, b, stride=2, padding=(0, p),
+                                   output_padding=(0, max(extra, 0)))
+            y = y[:, :, first:first + 2 * h]
+            return y[..., :extra] if extra < 0 else y
+        y = F.conv_transpose2d(x, w, b, stride=2, padding=p, output_padding=max(extra, 0))
         if extra < 0:
             y = y[:, :, :extra, :extra]
         return y
+
+
+def _at(spatial, level: int):
+    return None if spatial is None else spatial.at(level)
 
 
 class UNet(nn.Module):
@@ -143,21 +175,23 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.raw(x).float()
 
-    def raw(self, x: torch.Tensor, inplace_bias: bool = True) -> torch.Tensor:
+    def raw(self, x: torch.Tensor, inplace_bias: bool = True, spatial=None) -> torch.Tensor:
         """The forward pass with the output left in ``compute_dtype``: in
-        bf16 its values are exactly those :meth:`forward` widens to f32."""
+        bf16 its values are exactly those :meth:`forward` widens to f32.
+        ``spatial``: a spatial context at level 0; x is then this rank's
+        block of rows, and so is the output."""
         x = self.stem(x.to(self.compute_dtype))
         skips = []
         for i in range(len(self.channels)):
             x = F.relu(x)
             skips.append(x)
-            x = getattr(self, f"down_{i}")(x)
-        x = self.bottleneck(F.relu(x))
+            x = getattr(self, f"down_{i}")(x, _at(spatial, i))
+        x = self.bottleneck(F.relu(x), _at(spatial, len(self.channels)))
         for i in reversed(range(len(self.channels))):
-            x = self._up(i, x, skips[i])
+            x = self._up(i, x, skips[i], spatial)
         return self._head_channel_first(F.relu(x), inplace_bias)
 
-    def raw_remat(self, x: torch.Tensor, policy: Optional[str]) -> torch.Tensor:
+    def raw_remat(self, x: torch.Tensor, policy: Optional[str], spatial=None) -> torch.Tensor:
         """:meth:`raw` under rematerialisation: the backward recomputes what
         the forward did not keep. ``policy`` says what it keeps, as the JAX
         package's ``remat_policy`` does:
@@ -173,14 +207,17 @@ class UNet(nn.Module):
           which the flax U-Net's convolutions are not.)
 
         The parameters the recomputation reads are the module's own, so it
-        sees the values the forward saw."""
+        sees the values the forward saw. On a block (``spatial``) the
+        recomputation issues the forward's halo exchanges again, in the
+        forward's order, on every rank of the group."""
         if policy is None:
-            return checkpoint(self.raw, x, use_reentrant=False)
+            return checkpoint(functools.partial(self.raw, spatial=spatial), x,
+                              use_reentrant=False)
         if policy == "dots":
             # the head's bias is added out of place: an in-place add would
             # change the saved product
-            return checkpoint(functools.partial(self.raw, inplace_bias=False), x,
-                              use_reentrant=False,
+            return checkpoint(functools.partial(self.raw, inplace_bias=False, spatial=spatial),
+                              x, use_reentrant=False,
                               context_fn=functools.partial(
                                   create_selective_checkpoint_contexts, _DOTS_SAVED))
         if policy != "acts":
@@ -192,24 +229,27 @@ class UNet(nn.Module):
         def stem(h):
             return F.relu(self.stem(h.to(self.compute_dtype)))
 
-        L = len(self.channels)
-        acts = [block(lambda h: self.down_0(stem(h)), x)]
+        L, sp = len(self.channels), spatial
+        acts = [block(lambda h: self.down_0(stem(h), _at(sp, 0)), x)]
         for i in range(1, L):
-            acts.append(block(lambda d, i=i: getattr(self, f"down_{i}")(F.relu(d)), acts[-1]))
-        y = block(lambda d: self.bottleneck(F.relu(d)), acts[-1])
+            acts.append(block(lambda d, i=i: getattr(self, f"down_{i}")(F.relu(d), _at(sp, i)),
+                              acts[-1]))
+        y = block(lambda d: self.bottleneck(F.relu(d), _at(sp, L)), acts[-1])
         for i in reversed(range(1, L)):
-            y = block(lambda y, d, i=i: self._up(i, y, F.relu(d)), y, acts[i - 1])
-        y = block(lambda y, h: self._up(0, y, stem(h)), y, x)
+            y = block(lambda y, d, i=i: self._up(i, y, F.relu(d), sp), y, acts[i - 1])
+        y = block(lambda y, h: self._up(0, y, stem(h), sp), y, x)
         return block(lambda m: self._head_channel_first(F.relu(m)), y)
 
-    def _up(self, i: int, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    def _up(self, i: int, x: torch.Tensor, skip: torch.Tensor, spatial=None) -> torch.Tensor:
         """Level i's way up: ``up_i``, the skip concatenated, ``up_mix_i``."""
         x = F.relu(x)
         if self.upsample == "nearest":
             x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-        x = getattr(self, f"up_{i}")(x)
+            x = getattr(self, f"up_{i}")(x, _at(spatial, i))
+        else:
+            x = getattr(self, f"up_{i}")(x, _at(spatial, i + 1))
         x = torch.cat([x, skip], dim=1)
-        return getattr(self, f"up_mix_{i}")(F.relu(x))
+        return getattr(self, f"up_mix_{i}")(F.relu(x), _at(spatial, i))
 
     def _head_channel_first(self, x: torch.Tensor, inplace_bias: bool = True) -> torch.Tensor:
         """The 1×1 head as one batched product that writes channel-first

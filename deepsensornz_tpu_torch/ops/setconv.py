@@ -102,28 +102,38 @@ def setconv_encode_grid(x1g, x2g, xc1, xc2, y, lengthscale, mask=None) -> torch.
     return _density_normalise(torch.einsum("wj,bhjc->bhwc", Bm, t))
 
 
-def setconv_decode_offgrid(x1g, x2g, f, xt, lengthscale, normalize=True) -> torch.Tensor:
-    """Interpolate internal-grid features (B, H, W, C) at off-grid targets
-    xt (B, M, 2) → (B, M, C); normalised per target by (Σ_h w1)(Σ_w w2)."""
+def setconv_decode_offgrid_parts(x1g, x2g, f, xt, lengthscale) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two sums of the off-grid decode: Σ_h Σ_w w1·w2·f (B, M, C) and
+    the normaliser (Σ_h w1)(Σ_w w2) (B, M). Both are linear in the rows of
+    the grid, so the sums over row blocks add up to the whole grid's."""
     w1 = rbf(xt[:, :, None, 0], x1g[None, None, :], lengthscale)  # (B, M, H)
     w2 = rbf(xt[:, :, None, 1], x2g[None, None, :], lengthscale)  # (B, M, W)
     t = torch.einsum("bmh,bhwc->bmwc", w1, f.float())
-    out = torch.einsum("bmw,bmwc->bmc", w2, t)
+    return torch.einsum("bmw,bmwc->bmc", w2, t), w1.sum(-1) * w2.sum(-1)
+
+
+def setconv_decode_offgrid(x1g, x2g, f, xt, lengthscale, normalize=True) -> torch.Tensor:
+    """Interpolate internal-grid features (B, H, W, C) at off-grid targets
+    xt (B, M, 2) → (B, M, C); normalised per target by (Σ_h w1)(Σ_w w2)."""
+    out, z = setconv_decode_offgrid_parts(x1g, x2g, f, xt, lengthscale)
     if normalize:
-        z = w1.sum(-1) * w2.sum(-1)
         out = out / (z[..., None] + DENSITY_EPS)
     return out
 
 
-def setconv_decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize=True) -> torch.Tensor:
+def setconv_decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize=True,
+                        row_sums=None) -> torch.Tensor:
     """Interpolate internal-grid features (B, H, W, C) onto the regular
     target grid xt1 (Ht,) × xt2 (Wt,) → (B, Ht, Wt, C): two matmuls,
-    (Ht,H) @ f @ (W,Wt), normalised by (Σ_h A)(Σ_w B)."""
+    (Ht,H) @ f @ (W,Wt), normalised by (Σ_h A)(Σ_w B). ``row_sums`` (Ht,)
+    stands in for Σ_h A: on a block of the grid's rows, the whole grid's
+    sums make the blocks' outputs add up to the whole decode."""
     A = rbf(xt1[:, None], x1g[None, :], lengthscale)   # (Ht, H)
     Bm = rbf(xt2[:, None], x2g[None, :], lengthscale)  # (Wt, W)
     t = torch.einsum("th,bhwc->btwc", A, f.float())
     out = torch.einsum("uw,btwc->btuc", Bm, t)
     if normalize:
-        z = A.sum(-1)[:, None] * Bm.sum(-1)[None, :]
+        sA = A.sum(-1) if row_sums is None else row_sums
+        z = sA[:, None] * Bm.sum(-1)[None, :]
         out = out / (z[None, ..., None] + DENSITY_EPS)
     return out

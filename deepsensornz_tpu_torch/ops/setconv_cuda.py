@@ -312,19 +312,25 @@ def _channel_first(f: torch.Tensor) -> torch.Tensor:
     return out.view(B * C, H, -1)
 
 
-def decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize: bool = True) -> torch.Tensor:
+def decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize: bool = True,
+                row_sums=None) -> torch.Tensor:
     """Gridded SetConv decode: f (B, H, W, C) on the internal grid
     x1g (H,) × x2g (W,) → (B, Ht, Wt, C) float32 on xt1 (Ht,) × xt2 (Wt,).
-    Same contract as :func:`.setconv.setconv_decode_grid`; f may be float32
-    or bfloat16, contiguous NHWC or a channel-first tensor seen as NHWC."""
+    Same contract as :func:`.setconv.setconv_decode_grid`, ``row_sums``
+    included (a block's decode normalised by the whole grid's sums); f may
+    be float32 or bfloat16, contiguous NHWC or a channel-first tensor seen
+    as NHWC. A target tile that no source row reaches comes out 0."""
     if _device_of(f) == "cpu":
-        return plain.setconv_decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize)
-    _forward_only(x1g, x2g, f, xt1, xt2, lengthscale)
+        return plain.setconv_decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize,
+                                         row_sums)
+    _forward_only(x1g, x2g, f, xt1, xt2, lengthscale, row_sums)
     dev = f.device
     B, H, W, C = f.shape
     Ht, Wt = xt1.shape[0], xt2.shape[0]
-    for name, t, shape in (("x1g", x1g, (H,)), ("x2g", x2g, (W,)),
-                           ("xt1", xt1, (Ht,)), ("xt2", xt2, (Wt,))):
+    checks = [("x1g", x1g, (H,)), ("x2g", x2g, (W,)), ("xt1", xt1, (Ht,)), ("xt2", xt2, (Wt,))]
+    if row_sums is not None:
+        checks.append(("row_sums", row_sums, (Ht,)))
+    for name, t, shape in checks:
         _check(name, t, shape, dev)
     if f.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"f must be float32 or bfloat16, got {f.dtype}")
@@ -334,7 +340,7 @@ def decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize: bool = True) -> t
     # builds them in XLA; the contractions and the epilogue are the kernel's
     A = plain.rbf(xt1[:, None], x1g[None, :], lengthscale)   # (Ht, H)
     Bm = plain.rbf(x2g[:, None], xt2[None, :], lengthscale)  # (W, Wt)
-    sA = A.sum(-1) if normalize else None
+    sA = (A.sum(-1) if row_sums is None else row_sums) if normalize else None
     sB = Bm.sum(0) if normalize else None
     t = decode_tiling(Ht, W, Wt)
     Hp = _cdiv(H, DECODE_BLOCK) * DECODE_BLOCK

@@ -1,5 +1,6 @@
 """The (data, spatial) device mesh, TaskBatch sharding for data-parallel
-training and serving, and the gather of each rank's rows.
+training and serving, the row blocks of the spatial partition, and the
+gather of each rank's rows.
 
 Counterpart of ``deepsensornz_tpu/parallel/mesh.py``, in torch's idiom: one
 process per GPU, where JAX has one process drive every local device. The
@@ -13,11 +14,16 @@ where XLA inserts a psum. Data-parallel serving (``Predictor`` and
 :func:`gather_rows` puts the ranks' outputs back together in rank order,
 on every rank, where a jitted JAX function returns one global array.
 
+The spatial axis (``n_spatial > 1``) partitions the internal grid of a
+model whose ``ConvNPConfig.mesh_axes`` names the axes: each rank of a
+spatial group holds the same task rows and a contiguous block of the
+grid's rows (:func:`row_blocks`, :func:`row_block`), as a JAX
+``P(batch, spatial, None, None)`` sharding of the encoding does. Where XLA
+SPMD writes the U-Net's halo exchange and the decode's reduction itself,
+the port writes them by hand (:mod:`.halo`).
+
 Not ported:
 
-- the spatial partition (``n_spatial > 1``): XLA SPMD writes the halo
-  exchange of the U-Net's convolutions itself; in torch it would be written
-  by hand. :func:`make_mesh` raises ``NotImplementedError``.
 - ``batch_spec`` and ``replicate``: they are ``PartitionSpec``\\ s, layouts
   that ``jit`` applies to global arrays. A torch tensor lives in one
   process, so they have no counterpart: :func:`shard_task` takes a rank's
@@ -44,18 +50,18 @@ SPATIAL_AXIS = "spatial"
 def make_mesh(n_data: Optional[int] = None, n_spatial: int = 1,
               device_type: Optional[str] = None) -> DeviceMesh:
     """A (data, spatial) mesh over every rank of the default process group;
-    by default all of them on the data axis. ``device_type``: ``"cuda"`` or
-    ``"cpu"``; by default ``"cuda"`` under NCCL and ``"cpu"`` otherwise. On
-    ``"cuda"`` each rank's current device becomes ``cuda:(rank % count)``."""
-    if n_spatial != 1:
-        raise NotImplementedError(
-            f"n_spatial={n_spatial}: the spatial partition of the internal grid (the "
-            "U-Net's halo exchange, mesh_axes) is not ported; use n_spatial=1")
+    by default all of them on the data axis. Rank ``d * n_spatial + s`` sits
+    at (d, s): a spatial group is ``n_spatial`` consecutive ranks, as JAX's
+    ``reshape(n_data, n_spatial)`` of the device list packs them.
+    ``device_type``: ``"cuda"`` or ``"cpu"``; by default ``"cuda"`` under
+    NCCL and ``"cpu"`` otherwise. On ``"cuda"`` each rank's current device
+    becomes ``cuda:(rank % count)``."""
     if not dist.is_initialized():
         raise RuntimeError("no process group: call parallel.multihost.initialize_multihost() "
                            "first")
     world = dist.get_world_size()
-    n_data = world if n_data is None else int(n_data)
+    n_spatial = int(n_spatial)
+    n_data = max(world // n_spatial, 1) if n_data is None else int(n_data)
     if n_data * n_spatial != world:
         raise ValueError(f"a {n_data}x{n_spatial} mesh needs {n_data * n_spatial} ranks; "
                          f"the process group has {world}")
@@ -80,6 +86,44 @@ def data_group(mesh: DeviceMesh):
 def data_shard(mesh: DeviceMesh) -> tuple[int, int]:
     """(this rank's index on the data axis, the axis' size)."""
     return mesh.get_local_rank(DATA_AXIS), mesh.size(0)
+
+
+def spatial_group(mesh: DeviceMesh):
+    """The process group of the spatial axis (the halo exchanges' and the
+    decode's sum)."""
+    return mesh.get_group(SPATIAL_AXIS)
+
+
+def spatial_shard(mesh: DeviceMesh) -> tuple[int, int]:
+    """(this rank's index on the spatial axis, the axis' size)."""
+    return mesh.get_local_rank(SPATIAL_AXIS), mesh.size(1)
+
+
+def row_blocks(H: int, n: int, unit: int) -> tuple[tuple[int, int], ...]:
+    """The row blocks ``[a, b)`` of an ``H``-row grid over ``n`` ranks.
+    Blocks are whole multiples of ``unit`` rows (``2**len(unet_channels)``,
+    so every U-Net level splits at integer rows), as equal as possible,
+    the first ranks taking the extra units: 608 rows in units of 16 give
+    304/304 over 2 ranks and 160/160/144/144 over 4. A split that would
+    leave a rank without a row at the coarsest level raises."""
+    if H % unit:
+        raise ValueError(f"a grid of {H} rows does not split into units of {unit} rows "
+                         "(the U-Net needs H divisible by 2**len(unet_channels))")
+    units = H // unit
+    if units < n:
+        raise ValueError(f"a grid of {H} rows is {units} units of {unit} rows: too few for "
+                         f"{n} spatial ranks, some rank would hold no row at the coarsest "
+                         "U-Net level")
+    per, extra = divmod(units, n)
+    bounds = np.cumsum([0] + [(per + (r < extra)) * unit for r in range(n)])
+    return tuple((int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:]))
+
+
+def row_block(mesh: DeviceMesh, H: int, unit: int) -> tuple[int, int]:
+    """This rank's row block ``[a, b)`` of an ``H``-row grid
+    (:func:`row_blocks` over the spatial axis)."""
+    index, n = spatial_shard(mesh)
+    return row_blocks(H, n, unit)[index]
 
 
 def task_shardings(task: TaskBatch, mesh: DeviceMesh) -> dict[str, Optional[str]]:
@@ -117,7 +161,8 @@ def shard_task(task: TaskBatch, mesh: DeviceMesh) -> TaskBatch:
     """This rank's rows of a global TaskBatch on this rank's device, the
     batch split evenly over the data axis in rank order (as a JAX
     ``P("data")`` sharding splits it over the mesh's devices); the
-    coordinate vectors whole. The batch must divide the data axis
+    coordinate vectors whole. Every rank of a spatial group gets the same
+    rows: the model cuts the grid itself. The batch must divide the data axis
     (:func:`pad_batch_to_multiple`)."""
     index, n = data_shard(mesh)
     b = task.batch_size
@@ -150,7 +195,8 @@ def rank_indices(mesh: DeviceMesh, idx) -> np.ndarray:
 
 def gather_rows(t: torch.Tensor, mesh: DeviceMesh, dim: int = 0) -> torch.Tensor:
     """Every data rank's ``t`` (one shape on every rank) concatenated along
-    ``dim`` in rank order, on every rank. The tensors travel as their bytes,
+    ``dim`` in rank order, on every rank; over the data axis only (the
+    ranks of a spatial group hold the same rows). The tensors travel as their bytes,
     so any dtype goes over any backend (gloo has no int16), bit for bit."""
     n = mesh.size(0)
     if n == 1:

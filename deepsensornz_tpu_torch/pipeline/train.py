@@ -16,8 +16,13 @@ Counterpart of ``deepsensornz_tpu/pipeline/train.py``:
   post-hoc ``std_scale`` fitted on the validation tasks (:func:`fit_std_scale`)
   and stored in the metadata.
 
-The model runs on ``device`` (``None``: the card, which must exist). The
-JAX package's loss-curve PNG is not written (it needs matplotlib).
+The model runs on ``device`` (``None``: the card, which must exist).
+``train_model(mesh=)`` trains data parallel over the mesh's ranks, and in
+row blocks of the internal grid over its spatial axis when the model's
+config names ``mesh_axes``; rank 0 alone writes the run. The loss-curve
+PNG (``losses.png``, :func:`..plot.make_loss_plot`) is written beside the
+checkpoint where matplotlib imports, as the JAX package writes it; where
+it does not (the card's machine), one line says it was skipped.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.special import ndtri
 
 from deepsensornz_tpu_torch import config as cfg
@@ -39,6 +45,18 @@ from deepsensornz_tpu_torch.task.loader import TaskLoader
 from deepsensornz_tpu_torch.task.task import TaskBatch
 from deepsensornz_tpu_torch.train.checkpoint import load_checkpoint, update_metadata
 from deepsensornz_tpu_torch.train.trainer import Trainer, load_params
+
+
+def write_loss_plot(train_losses, val_losses, path: str) -> bool:
+    """The loss curves as a PNG at ``path`` (:func:`..plot.make_loss_plot`);
+    False, with one printed line, where matplotlib does not import."""
+    try:
+        from deepsensornz_tpu_torch.plot import make_loss_plot
+    except ImportError as e:
+        print(f"{os.path.basename(path)} not written: {e}")
+        return False
+    make_loss_plot(train_losses, val_losses, path)
+    return True
 
 
 def fit_std_scale(model: ConvNP, params, tasks: TaskBatch, clip=(0.05, 20.0)) -> float:
@@ -230,12 +248,16 @@ class Train:
                     weight_decay: float = cfg.TRAIN_DEFAULTS["weight_decay"],
                     model_dir: Optional[str] = None, task_kwargs: Optional[dict] = None,
                     verbose: bool = True, recalibrate: str | bool = "auto",
-                    anchor_schedule=None, lengthscale_lr_mult: float = 1.0) -> dict:
+                    anchor_schedule=None, lengthscale_lr_mult: float = 1.0,
+                    mesh=None) -> dict:
         """Train, then (``recalibrate``: "auto" or True) fit ``std_scale``
         on the validation tasks. Without ``train_times`` the last fifth of
         the times (at least one) validates; explicit ``train_times``
         without ``val_times`` train with no validation. ``anchor_schedule``
-        goes to :meth:`Trainer.fit`."""
+        goes to :meth:`Trainer.fit`. ``mesh``: every rank calls this with
+        the same arguments and trains on the mesh (module docstring); rank 0
+        writes ``model_dir``."""
+        lead = mesh is None or dist.get_rank() == 0
         times = self.task_times()
         if train_times is None:
             n_val = max(len(times) // 5, 1)
@@ -247,14 +269,14 @@ class Train:
         val_tasks = self.create_tasks(val_times, **task_kwargs) if len(val_times) else None
 
         self.metadata = self._construct_metadata_dict()
-        if model_dir is not None:
+        if model_dir is not None and lead:
             os.makedirs(model_dir, exist_ok=True)
             save_task_loader(self.task_loader, os.path.join(model_dir, "task_loader.pkl"))
             self.dp.save(os.path.join(model_dir, "data_processor.json"))
 
         trainer = Trainer(self.model, lr=lr, weight_decay=weight_decay,
                           frozen_patterns=getattr(self, "frozen_patterns", ()),
-                          lengthscale_lr_mult=lengthscale_lr_mult)
+                          lengthscale_lr_mult=lengthscale_lr_mult, mesh=mesh)
         out = trainer.fit(
             train_tasks, val_tasks, n_epochs=n_epochs, batch_size=batch_size,
             params=self.params,
@@ -279,8 +301,11 @@ class Train:
             out["std_scale"] = self.std_scale
             if verbose:
                 print(f"recalibration: std_scale = {self.std_scale:.4f}")
-            if model_dir is not None:
+            if model_dir is not None and lead:
                 update_metadata(model_dir, std_scale=self.std_scale)
+        if model_dir is not None and lead:
+            write_loss_plot(self.train_losses, self.val_losses,
+                            os.path.join(model_dir, "losses.png"))
         return out
 
     def _construct_metadata_dict(self) -> dict:

@@ -22,7 +22,12 @@ Data parallel (``mesh=``, one process per GPU): each rank takes its rows
 of the global batch, divides its partial loss by the whole batch's counts
 of valid tasks and targets, and the ranks' gradients and losses are summed
 (not averaged: padding puts masked tasks on the last rank, so ranks differ
-in valid tasks) before the finite check, the clip and Adam.
+in valid tasks) before the finite check, the clip and Adam. Where the
+model partitions its grid over the mesh's spatial axis, the gradients of
+the parameters used before the decode's spatial sum are each rank's
+block's share and are summed over every rank (data × spatial); the head's,
+used after it, are whole on every spatial rank and, like the loss, are
+summed over the data axis only.
 """
 
 from __future__ import annotations
@@ -154,24 +159,40 @@ def apply_gradients(state: TrainState, grads: Mapping[str, torch.Tensor], loss: 
     return TrainState(params=params, opt_state=opt, step=state.step + 1), loss
 
 
+def _all_reduce_flat(tensors: list, group) -> list:
+    """``tensors`` summed over ``group`` in one all-reduce of one flat buffer."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return [v.view_as(t) for v, t in zip(torch.split(flat, [t.numel() for t in tensors]),
+                                          tensors)]
+
+
 def shard_loss_and_grads(model: torch.nn.Module, task: TaskBatch, mesh,
                          anchor_scale=1.0) -> tuple[torch.Tensor, dict]:
     """The data-parallel loss and gradients of a global batch: this rank's
     rows (``shard_task``) over the whole batch's denominators (all-reduced
     first), then this rank's gradients and loss summed over the data axis in
-    one all-reduce of one flat buffer. Every rank returns the same
-    numbers: the whole batch's loss and gradients."""
+    one all-reduce of one flat buffer. Where the model partitions its grid
+    over the spatial axis (``model.partial_gradients``), the gradients of
+    the parameters before the spatial sum go in a second flat buffer,
+    summed over every rank. Every rank returns the same numbers: the whole
+    batch's loss and gradients."""
     group = data_group(mesh)
     shard = shard_task(task, mesh)
     den = model.loss_denominators(shard)
     dist.all_reduce(den, group=group)
     workspace = dict(model.named_parameters())
-    loss = model.loss(shard, anchor_scale, den)
-    grads = torch.autograd.grad(loss, list(workspace.values()))
-    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
-    dist.all_reduce(flat, group=group)
-    parts = torch.split(flat, [g.numel() for g in grads] + [1])
-    return parts[-1][0], {k: v.view_as(g) for k, v, g in zip(workspace, parts, grads)}
+    loss = model.loss(shard, anchor_scale, den, mesh=mesh)
+    grads = dict(zip(workspace, torch.autograd.grad(loss, list(workspace.values()))))
+    partial = model.partial_gradients(mesh)
+    spatial = [k for k in workspace if k in partial]
+    whole = [k for k in workspace if k not in partial]
+    summed = dict(zip(spatial, _all_reduce_flat([grads[k] for k in spatial], None)))
+    *rest, loss = _all_reduce_flat([grads[k] for k in whole] + [loss.detach()], group)
+    summed.update(zip(whole, rest))
+    return loss, {k: summed[k] for k in workspace}
 
 
 def make_train_step(model: torch.nn.Module, weight_decay: float = 0.0,
@@ -250,7 +271,7 @@ def make_eval_step(model, mesh=None) -> Callable:
             shard = shard_task(pad_batch_to_multiple(task, mesh.size(0))[0], mesh)
             den = model.loss_denominators(shard)
             dist.all_reduce(den, group=data_group(mesh))
-            loss = model.loss(shard, 1.0, den)
+            loss = model.loss(shard, 1.0, den, mesh=mesh)
             dist.all_reduce(loss, group=data_group(mesh))
             return loss
 

@@ -1,7 +1,7 @@
 """Start a group of the port's worker processes for a test (gloo, one CPU
-each): ``tests/_torch_parallel_worker.py`` under the JAX package's or
-torchrun's environment names, one free port per group, a time limit per
-group; the ranks' outputs come back by rank."""
+each): ``tests/_torch_parallel_worker.py`` (or another worker script) under
+the JAX package's or torchrun's environment names, one free port per group,
+a time limit per group; the ranks' outputs come back by rank."""
 
 import os
 import socket
@@ -25,10 +25,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_group(inputs: dict, world: int, tmp: Path, env_names: str, mode: str = "train") -> list:
-    """``world`` worker processes in ``mode`` on ``inputs`` (saved with
-    ``torch.save``); their outputs by rank. A group that does not finish in
-    ``GROUP_TIMEOUT`` seconds fails the test."""
+def run_group(inputs: dict, world: int, tmp: Path, env_names: str, mode: str = "train",
+              worker: Path = WORKER) -> list:
+    """``world`` processes of ``worker`` in ``mode`` on ``inputs`` (saved
+    with ``torch.save``); their outputs by rank. A group that does not
+    finish in ``GROUP_TIMEOUT`` seconds fails the test."""
     inp = tmp / "in.pt"
     torch.save(inputs, inp)
     port = free_port()
@@ -42,7 +43,7 @@ def run_group(inputs: dict, world: int, tmp: Path, env_names: str, mode: str = "
         else:
             env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(world),
                        RANK=str(rank), LOCAL_RANK=str(rank))
-        procs.append(subprocess.Popen([sys.executable, str(WORKER), str(inp), str(tmp), mode],
+        procs.append(subprocess.Popen([sys.executable, str(worker), str(inp), str(tmp), mode],
                                       cwd=REPO, env=env, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
     outs = []

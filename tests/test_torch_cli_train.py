@@ -93,7 +93,7 @@ def test_cli_writes_the_run_where_the_paths_say(runs, tmp_path):
     port_dir = runs["port_dir"]
     assert port_dir.endswith(os.path.join("port", "temperature", "cli_run"))
     assert sorted(os.listdir(port_dir)) == [
-        "args.yaml", "data_processor.json", "metadata.json", "opt_state.msgpack",
+        "args.yaml", "data_processor.json", "losses.png", "metadata.json", "opt_state.msgpack",
         "opt_state.pt", "params.msgpack", "params.pt", "task_loader.pkl"]
     with open(os.path.join(port_dir, "args.yaml"), "rb") as f, \
             open(runs["arg_path"], "rb") as g:

@@ -203,5 +203,6 @@ def test_config_from_jax_json():
                    init_lengthscale=(("ls_decoder", 0.02),))
     cfg = ConvNPConfig.from_dict(json.loads(json.dumps(dataclasses.asdict(jcfg))))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    with pytest.raises(NotImplementedError):
-        ConvNP(ConvNPConfig(mesh_axes=("data", "space")), [1], [1])
+    # the spatial partition's axes are accepted; without a mesh the grid is whole
+    model = ConvNP(ConvNPConfig(mesh_axes=("data", "spatial")), [1], [1])
+    assert model.spatial_context(None, None) is None and model.partial_gradients(None) == set()

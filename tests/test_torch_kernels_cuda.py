@@ -543,3 +543,98 @@ def test_two_rank_gloo_grid_request_equals_the_two_shard_process(cuda, tmp_path,
         assert cs.same_arrays(out["float32"]["ar"], ranks[0]["float32"]["ar"])
         assert all(q["counts"]["encode_offgrid"] > 0 for q in out["requests"])
         assert not any(out["plain"].values())
+
+
+# -- the spatial partition: the kernels on row blocks of the internal grid -------------
+
+
+@pytest.mark.parametrize("n_blocks", [2, 4])
+def test_encode_and_its_l_gradient_on_row_blocks(cuda, n_blocks):
+    """B1 on a block of grid rows (x1g[a:b]) gives the whole grid's rows of
+    the plain encode; its l-gradient on the block is the plain gradient of
+    the block's share, and the blocks' shares sum to the whole grid's."""
+    from deepsensornz_tpu_torch.parallel.mesh import row_blocks
+
+    B, N, C, H, W, ls = 3, 512, 1, 608, 136, 0.005
+    x1g, x2g, x, y, mask = _points(np.random.default_rng(4), B, N, C, H, W, 0.1, cuda)
+    g = torch.randn(B, H, W, C + 1, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    whole = setconv.setconv_encode_offgrid(x1g, x2g, x, y, mask, ls)
+    total, scale = 0.0, 0.0
+    for a, b in row_blocks(H, n_blocks, 16):
+        args = (x1g[a:b], x2g, x, y, mask)
+        before = setconv_cuda.launch_counts()
+        with torch.no_grad():
+            fwd = setconv_cuda.encode_offgrid(*args, ls)
+        _close(fwd, whole[:, a:b])
+        got = setconv_cuda.encode_offgrid_grad(*args, ls, g[:, a:b].contiguous(), fwd)
+        after = setconv_cuda.launch_counts()
+        assert after["encode_offgrid"] == before["encode_offgrid"] + 1
+        assert after["encode_offgrid_grad"] == before["encode_offgrid_grad"] + 1
+        terms = setconv.encode_offgrid_grad_ls_terms(*args, torch.tensor(ls, dtype=torch.float64),
+                                                     g[:, a:b].double())
+        ref = float(sum(t.sum() for t in terms))
+        mag = float(sum(t.abs().sum() for t in terms))
+        assert abs(float(got) - ref) <= 1e-5 * abs(ref) + 1e-7 * mag, (a, b, float(got), ref)
+        total += float(got)
+        scale += mag
+    terms = setconv.encode_offgrid_grad_ls_terms(x1g, x2g, x, y, mask,
+                                                 torch.tensor(ls, dtype=torch.float64), g.double())
+    ref = float(sum(t.sum() for t in terms))
+    assert abs(total - ref) <= 1e-5 * abs(ref) + 1e-7 * scale, (total, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_blocks", [2, 4])
+def test_decode_grid_row_blocks_sum_to_the_whole(cuda, n_blocks, dtype):
+    """B2 on each block's rows of f with the block's A and the whole grid's
+    row sums, summed over the blocks: the whole decode, within B2's
+    tolerance."""
+    from deepsensornz_tpu_torch.parallel.mesh import row_blocks
+
+    x1g, x2g, f, xt1, xt2 = _grid(2, 608, 96, 8, 278, 260, dtype, cuda)
+    ls = 0.005
+    row_sums = setconv.rbf(xt1[:, None], x1g[None, :], ls).sum(-1)
+    want = setconv.setconv_decode_grid(x1g, x2g, f, xt1, xt2, ls)
+    got = sum(setconv_cuda.decode_grid(x1g[a:b], x2g, f[:, a:b].contiguous(), xt1, xt2, ls,
+                                       row_sums=row_sums)
+              for a, b in row_blocks(608, n_blocks, 16))
+    _close(got, want)
+    # the plain version takes the same argument
+    plain = sum(setconv.setconv_decode_grid(x1g[a:b], x2g, f[:, a:b], xt1, xt2, ls,
+                                            row_sums=row_sums)
+                for a, b in row_blocks(608, n_blocks, 16))
+    _close(plain, want)
+
+
+def test_decode_grid_block_reaching_no_target_tile_gives_zeros(cuda):
+    """A block whose rows reach none of the target rows (every weight an
+    exact 0, so every k-range empty) comes out exactly 0, whatever the
+    memory the output was allocated from held."""
+    x1g, x2g, f, _, xt2 = _grid(2, 608, 96, 8, 278, 260, torch.float32, cuda)
+    xt1 = torch.linspace(0.0, 0.3, 278, device=cuda)  # targets in the grid's first third
+    ls = 0.005
+    row_sums = setconv.rbf(xt1[:, None], x1g[None, :], ls).sum(-1)
+    a, b = 456, 608  # rows at x1 >= 0.75: exp(-(0.45/0.005)^2/2) is 0 in f32
+    assert not bool((setconv.rbf(xt1[:, None], x1g[None, a:b], ls) != 0).any())
+    garbage = torch.full((2 * 278 * 260 * 8 * 3,), float("nan"), device=cuda)
+    del garbage  # the caching allocator hands its NaN-filled memory out again
+    got = setconv_cuda.decode_grid(x1g[a:b], x2g, f[:, a:b].contiguous(), xt1, xt2, ls,
+                                   row_sums=row_sums)
+    torch.cuda.synchronize()
+    assert bool((got == 0).all())
+
+
+def test_two_rank_gloo_spatial_partition_on_the_card(cuda, monkeypatch):
+    """The chip script's [spatial] phase at its small model: 2 ranks on card
+    0 (gloo on CUDA tensors), each with its block of the grid's rows; the
+    loss, gradients and request against one process on the whole grid
+    within JAX's bounds, B1, its l-gradient and B2 launched on each rank,
+    no plain SetConv on the card."""
+    import chip_smoke as cs
+    from deepsensornz_tpu_torch.ops import _build
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    _build.load_library()
+    counts = cs.spatial_phase(cuda, setconv_cuda, size="small")
+    assert all(counts[k] > 0 for k in ("encode_offgrid", "encode_offgrid_grad", "decode_grid"))

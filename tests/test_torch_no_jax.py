@@ -289,7 +289,7 @@ tr.initialise_model(unet_channels=(8, 8), likelihood="cnp", compute_dtype="float
 run_dir = {str(tmp_path / "run")!r}
 res = tr.train_model(n_epochs=2, batch_size=4, lr=1e-3, model_dir=run_dir, verbose=False)
 assert np.isfinite(res["train_losses"]).all() and len(res["val_losses"]) == 2
-assert sorted(os.listdir(run_dir)) == ["data_processor.json", "metadata.json",
+assert sorted(os.listdir(run_dir)) == ["data_processor.json", "losses.png", "metadata.json",
                                        "opt_state.msgpack", "opt_state.pt", "params.msgpack",
                                        "params.pt", "task_loader.pkl"]
 data = open(os.path.join(run_dir, "task_loader.pkl"), "rb").read()
@@ -402,8 +402,8 @@ with open(arg_path, "w") as f:
     yaml.safe_dump(args, f)
 run_dir = train_downscaling.main(["-arg_path", arg_path, "--device", "cpu"])
 assert sorted(__import__("os").listdir(run_dir)) == [
-    "args.yaml", "data_processor.json", "metadata.json", "opt_state.msgpack", "opt_state.pt",
-    "params.msgpack", "params.pt", "task_loader.pkl"]
+    "args.yaml", "data_processor.json", "losses.png", "metadata.json", "opt_state.msgpack",
+    "opt_state.pt", "params.msgpack", "params.pt", "task_loader.pkl"]
 assert utils.validate_and_convert_args({{"n_epochs": "2"}}) == {{"n_epochs": 2}}
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "flax", "optax", "deepsensornz_tpu", "pandas", "msgpack", "h5py")

@@ -300,10 +300,14 @@ def test_group_device_follows_the_backend(one_process_group):
 
 
 def test_spatial_partition_raises(one_process_group):
-    with pytest.raises(NotImplementedError, match="spatial partition"):
+    """A spatial axis is built like the data axis (tests/test_torch_spatial.py
+    runs it); a mesh larger than the process group raises."""
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         pmesh.make_mesh(n_spatial=2)
     with pytest.raises(ValueError, match="needs 2 ranks"):
         pmesh.make_mesh(n_data=2)
+    mesh = pmesh.make_mesh(n_spatial=1)
+    assert pmesh.spatial_shard(mesh) == (0, 1) and pmesh.row_block(mesh, 64, 16) == (0, 64)
 
 
 def test_make_mesh_needs_a_process_group():

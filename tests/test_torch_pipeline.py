@@ -140,8 +140,8 @@ def test_two_epochs_match_jax(runs):
 
 def test_run_directory_matches_jax(runs):
     files = sorted(os.listdir(runs["port_dir"]))
-    assert files == ["data_processor.json", "metadata.json", "opt_state.msgpack", "opt_state.pt",
-                     "params.msgpack", "params.pt", "task_loader.pkl"]
+    assert files == ["data_processor.json", "losses.png", "metadata.json", "opt_state.msgpack",
+                     "opt_state.pt", "params.msgpack", "params.pt", "task_loader.pkl"]
     port, jax_run = load_run(runs["port_dir"], device="cpu"), load_run(runs["jax_dir"],
                                                                        device="cpu")
     meta, jmeta = port["metadata"], jax_run["metadata"]
