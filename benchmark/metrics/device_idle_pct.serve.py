@@ -1,0 +1,8 @@
+"""device_idle_pct.serve: the share of the traced window in which no kernel,
+copy or set ran on the card, %."""
+
+from benchmark.readings import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx)
