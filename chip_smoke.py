@@ -150,7 +150,7 @@ Phases (one line each; the first failure exits non-zero):
              72-time request in chunks of 24 for every ``transfer_dtype``
              (float32, float16, int16, int8) x ``download_threads`` (1, 8) x
              ``upload_dtype`` (float32, float16): wall and CUDA-event time,
-             ``last_timings``, the largest error against float32 within
+             the request's spans, the largest error against float32 within
              the mode's bound, 8 threads bitwise equal to 1.
 15. validate-reference - ``Validate`` on a small ConvNP of each head (gnp,
              cnp, bernoulli-gamma, cnp-spikes-beta) on the GPU and on the
@@ -1975,6 +1975,7 @@ def validate_phase(dev, run_dir: Path, base, dem, stations, setconv, setconv_cud
     import torch
 
     from deepsensornz_tpu_torch.infer.predict import Predictor
+    from deepsensornz_tpu_torch.perf import spans
     from deepsensornz_tpu_torch.pipeline.validate import Validate, ValidateERA, _nearest_index
 
     t_phase = time.perf_counter()
@@ -2117,11 +2118,15 @@ def validate_phase(dev, run_dir: Path, base, dem, stations, setconv, setconv_cud
                 if not results:  # one warm-up of the chunked path
                     p.predict_grid(task72, era.pred_grid, aux_at_targets=aux, times=t72)
                 setconv_cuda.reset_launch_counts()
-                out, ms, wall = timed(lambda: p.predict_grid(task72, era.pred_grid,
-                                                             aux_at_targets=aux, times=t72))
+                spans.clear()
+                with spans.recording():
+                    out, ms, wall = timed(lambda: p.predict_grid(task72, era.pred_grid,
+                                                                 aux_at_targets=aux, times=t72))
                 for k, n in setconv_cuda.launch_counts().items():
                     totals[k] += n
-                results[(up, t, threads)] = (out, wall, ms, p.last_timings)
+                split = {k.split(".")[1]: round(1e3 * v["total_s"], 2)
+                         for k, v in spans.snapshot().items() if k.count(".") == 1}
+                results[(up, t, threads)] = (out, wall, ms, split)
     eps = float(np.finfo(np.float32).eps)
     for (up, t, threads), (out, wall, ms, lt) in results.items():
         ref = results[(up, None, 1)][0]
@@ -2146,7 +2151,7 @@ def validate_phase(dev, run_dir: Path, base, dem, stations, setconv, setconv_cud
                       for k in ("mean", "std"))
         say("validate", f"transfer {t or 'float32'}, upload {up or 'float32'}, {threads} "
             f"download threads ({TRANSFER_TIMES} times, chunks of {N_TASKS}): {wall:.4f} s wall, "
-            f"{ms:.1f} ms CUDA events, last_timings {lt}; max_abs_err against float32 mean "
+            f"{ms:.1f} ms CUDA events, spans (ms, summed) {lt}; max_abs_err against float32 mean "
             f"{worst['mean']:.3e} std {worst['std']:.3e} (within its bound {not over}); "
             f"bitwise equal to 1 thread {bitwise}")
         if over or not bitwise:
@@ -3531,8 +3536,8 @@ def spatial_worker(out_dir: str, size: str) -> int:
     from deepsensornz_tpu_torch.infer import ar
     from deepsensornz_tpu_torch.infer.predict import Predictor
     from deepsensornz_tpu_torch.ops import _build, setconv, setconv_cuda
-    from deepsensornz_tpu_torch.parallel import halo
     from deepsensornz_tpu_torch.parallel.mesh import make_mesh, mesh_device, row_block
+    from deepsensornz_tpu_torch.perf import spans
     from deepsensornz_tpu_torch.parallel.multihost import initialize_multihost
     from deepsensornz_tpu_torch.train.trainer import (init_state, make_train_step,
                                                       shard_loss_and_grads)
@@ -3549,11 +3554,19 @@ def spatial_worker(out_dir: str, size: str) -> int:
            "block": row_block(mesh, tasks["train"].x1g.shape[0], 2 ** len(first.unet_channels))}
 
     def run(name, fn):
-        """One timed call; its times, halo traffic and launches under ``name``."""
-        halo.reset_stats()
+        """One timed call; its times, halo traffic (the recorder's ``halo.``
+        counters and spans) and launches under ``name``."""
+        spans.reset("halo.")
+        spans.clear()
         setconv_cuda.reset_launch_counts()
-        res, ms, wall = timed(fn)
-        out["runs"].append({"name": name, "ms": ms, "s": wall, "halo": dict(halo.stats),
+        with spans.recording():
+            res, ms, wall = timed(fn)
+        counts, snap = spans.counters("halo."), spans.snapshot()
+        h = {k: counts.get(f"halo.{k}", 0) for k in ("exchanges", "exchange_bytes", "sums",
+                                                      "sum_bytes")}
+        h.update(exchange_s=snap.get("halo.exchange", {}).get("total_s", 0.0),
+                 sum_s=snap.get("halo.sum", {}).get("total_s", 0.0))
+        out["runs"].append({"name": name, "ms": ms, "s": wall, "halo": h,
                             "counts": setconv_cuda.launch_counts()})
         return res
 

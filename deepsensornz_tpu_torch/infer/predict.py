@@ -35,12 +35,21 @@ maps on the device (``"float16"``/``"bfloat16"``) or quantises them there
 (``"int16"``/``"int8"``: per-(task, channel) ``lo``/``scale`` over the
 cells, dequantised on the host, at most ``scale/2`` off); ``upload_dtype``
 casts the task's value leaves on the host and upcasts them on the device.
+
+While the perf recorder records (``perf.spans``), a gridded request is the
+span ``predict_grid`` and its children: ``.prepare`` (the target
+coordinates, the aux resampled onto the target grid, the sea mask),
+``.upload``, ``.launch`` (the host's enqueue of the forward),
+``.download`` (issuing the copies to pinned memory), ``.wait`` (for the
+copies, or for the chunks' workers), ``.maps`` (dequantise, scatter,
+``post_transform``, unnormalise, ``Field``s; one per chunk on its worker
+thread, under the request); and the device spans ``.device`` (all of the
+forward's device work) with ``.sample`` (the head's draws) inside it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -51,6 +60,7 @@ from deepsensornz_tpu_torch.data.grid import Dataset, Field, interp_grid_at_poin
 from deepsensornz_tpu_torch.data.processor import DataProcessor
 from deepsensornz_tpu_torch.infer.ar import ar_sample, sample_rows
 from deepsensornz_tpu_torch.parallel.mesh import gather_rows, rank_indices
+from deepsensornz_tpu_torch.perf import spans
 from deepsensornz_tpu_torch.task.batching import take
 from deepsensornz_tpu_torch.task.task import GridContext, PointContext, TaskBatch
 
@@ -246,9 +256,6 @@ class Predictor:
         self.upload_dtype = upload_dtype
         self.batch_chunk = batch_chunk
         self.download_threads = int(download_threads)
-        # wall split of the last chunked predict_grid: the upload, then the
-        # chunks' launches, copies and scatters, which overlap
-        self.last_timings: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
@@ -283,6 +290,21 @@ class Predictor:
         """
         if "mean" not in outputs or not set(outputs) <= {"mean", "std"}:
             raise ValueError(f"outputs must be ('mean','std') or ('mean',); got {outputs}")
+        with spans.span("predict_grid"):
+            with spans.span("predict_grid.prepare"):
+                lat, lon, xt1, xt2, aux, land = self._prepare(
+                    task, target_elev, aux_at_targets, sea_mask, resolution_factor)
+            mean, std, samples = self._forward_chunked(task, xt1, xt2, aux, n_samples, seed,
+                                                       outputs, land, mesh)
+            with spans.span("predict_grid.maps"):
+                return self._fields(task, lat, lon, mean, std, samples, times, n_samples,
+                                    unnormalise, post_transform)
+
+    def _prepare(self, task, target_elev, aux_at_targets, sea_mask, resolution_factor):
+        """(lat, lon, xt1, xt2, aux, land) of a gridded request: the target
+        grid's coordinates, raw and normalised, the aux channels resampled
+        onto it (Ht, Wt, A) or None, and the land cells' flat indices or
+        None."""
         lat = target_elev.coords[target_elev.dims[-2]]
         lon = target_elev.coords[target_elev.dims[-1]]
         if resolution_factor != 1.0:
@@ -318,9 +340,11 @@ class Predictor:
             sea2d = np.isnan(target_elev.data)
             if sea2d.any():
                 land = np.flatnonzero(~sea2d.ravel())
+        return lat, lon, xt1, xt2, aux, land
 
-        mean, std, samples = self._forward_chunked(task, xt1, xt2, aux, n_samples, seed,
-                                                   outputs, land, mesh)
+    def _fields(self, task, lat, lon, mean, std, samples, times, n_samples, unnormalise,
+                post_transform) -> Prediction:
+        """The host maps, post-transformed and unnormalised, as ``Field``s."""
         if post_transform is not None:
             mean, std = post_transform(mean, std)
             if samples is not None:
@@ -362,61 +386,68 @@ class Predictor:
         Ht, Wt, dy = len(xt1), len(xt2), self.model.cfg.dim_yt
         if not chunk or B <= chunk:
             with torch.inference_mode():
-                if mesh is not None:
-                    task = take(task, rank_indices(mesh, np.arange(B)))
-                out = self._device_forward(_upload(task, dev, self.upload_dtype), xt1, xt2, aux,
-                                           n_samples, seed, outputs, land, mesh, B)
-                host, event = _download(out, dev)
-            if event is not None:
-                event.synchronize()
-            got = {k: _scatter(_dequantize_host(v), land, Ht, Wt) for k, v in host.items()}
+                with spans.span("predict_grid.upload"):
+                    if mesh is not None:
+                        task = take(task, rank_indices(mesh, np.arange(B)))
+                    task = _upload(task, dev, self.upload_dtype)
+                with spans.span("predict_grid.launch"):
+                    out = self._device_forward(task, xt1, xt2, aux, n_samples, seed, outputs,
+                                               land, mesh, B)
+                with spans.span("predict_grid.download"):
+                    host, event = _download(out, dev)
+            with spans.span("predict_grid.wait"):
+                if event is not None:
+                    event.synchronize()
+            with spans.span("predict_grid.maps"):
+                got = {k: _scatter(_dequantize_host(v), land, Ht, Wt) for k, v in host.items()}
             return got["mean"], got.get("std"), got.get("samples")
 
         full = {k: np.empty((B, Ht, Wt, dy), np.float32) for k in outputs}
         if n_samples > 0:
             full["samples"] = np.empty((n_samples, B, Ht, Wt, dy), np.float32)
 
-        def fetch_into(host, event, off):
+        def fetch_into(host, event, off, request):
             if event is not None:
                 event.synchronize()
             n = min(off + chunk, B) - off
-            for k, v in host.items():
-                a = _dequantize_host(v)
-                if k == "samples":
-                    for i in range(n_samples):
-                        _scatter_into(full[k][i, off:off + n], a[i, :n], land)
-                else:
-                    _scatter_into(full[k][off:off + n], a[:n], land)
+            with spans.span("predict_grid.maps", parent=request):
+                for k, v in host.items():
+                    a = _dequantize_host(v)
+                    if k == "samples":
+                        for i in range(n_samples):
+                            _scatter_into(full[k][i, off:off + n], a[i, :n], land)
+                    else:
+                        _scatter_into(full[k][off:off + n], a[:n], land)
 
         offsets = range(0, B, chunk)
         chunks = []  # each chunk's task indices, the tail padded with its last task
         for off in offsets:
             idx = np.arange(off, min(off + chunk, B))
             chunks.append(np.concatenate([idx, np.full(chunk - len(idx), idx[-1], idx.dtype)]))
-        if mesh is not None:
-            # this rank's rows of every chunk, uploaded once; each chunk then
-            # takes its rows of the upload
-            mine = [rank_indices(mesh, idx) for idx in chunks]
-            task = take(task, np.concatenate(mine))
-            chunks = [np.arange(i * len(m), (i + 1) * len(m)) for i, m in enumerate(mine)]
+        request = spans.current()
         with torch.inference_mode():
-            t_up = time.perf_counter()
-            task = _upload(task, dev, self.upload_dtype)  # the whole batch, once
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t_up = time.perf_counter() - t_up
-            t_run = time.perf_counter()
+            with spans.span("predict_grid.upload"):
+                if mesh is not None:
+                    # this rank's rows of every chunk, uploaded once; each
+                    # chunk then takes its rows of the upload
+                    mine = [rank_indices(mesh, idx) for idx in chunks]
+                    task = take(task, np.concatenate(mine))
+                    chunks = [np.arange(i * len(m), (i + 1) * len(m)) for i, m in enumerate(mine)]
+                task = _upload(task, dev, self.upload_dtype)  # the whole batch, once
             futures = []
             with ThreadPoolExecutor(self.download_threads) as pool:
                 for off, idx in zip(offsets, chunks):
-                    out = self._device_forward(take(task, torch.from_numpy(idx).to(dev)), xt1, xt2,
-                                               aux, n_samples, seed + off, outputs, land, mesh,
-                                               chunk)
-                    futures.append(pool.submit(fetch_into, *_download(out, dev), off))
-                for f in futures:
-                    f.result()
-        self.last_timings = {"upload_s": round(t_up, 3),
-                             "overlap_s": round(time.perf_counter() - t_run, 3)}
+                    with spans.span("predict_grid.launch"):
+                        out = self._device_forward(take(task, torch.from_numpy(idx).to(dev)),
+                                                   xt1, xt2, aux, n_samples, seed + off, outputs,
+                                                   land, mesh, chunk)
+                    with spans.span("predict_grid.download"):
+                        futures.append(pool.submit(fetch_into, *_download(out, dev), off,
+                                                   request))
+                with spans.span("predict_grid.wait"):
+                    for f in futures:
+                        f.result()
+                    pool.shutdown()
         return full["mean"], full.get("std"), full.get("samples")
 
     def _device_forward(self, task, xt1, xt2, aux, n_samples, seed, outputs, land,
@@ -429,29 +460,31 @@ class Predictor:
         the samples are drawn as for the batch (:func:`sample_rows`) and
         the result is the batch's, gathered from every rank."""
         dev = self.device
-        lik = self.likelihood
-        B, Ht, Wt = task.batch_size, len(xt1), len(xt2)
-        aux_d = None if aux is None else torch.from_numpy(aux).to(dev).expand(B, *aux.shape)
-        raw = self.model(task, target_grid=(torch.from_numpy(xt1).to(dev),
-                                            torch.from_numpy(xt2).to(dev), aux_d), mesh=mesh)
-        raw = lik.rescale_raw(raw, self.std_scale).reshape(B, Ht * Wt, -1)
-        mean, std = lik.mean_std(raw)
-        out = {k: v for k, v in (("mean", mean), ("std", std)) if k in outputs}
-        if n_samples > 0:
-            # over the flattened grid, so the gnp head samples jointly
-            gen = torch.Generator(device=dev).manual_seed(int(seed))
-            out["samples"] = (lik.sample(raw, gen, n_samples) if mesh is None  # (n, B, Ht·Wt, dy)
-                              else sample_rows(lik, raw, gen, n_samples, mesh, batch))
-        if land is not None:
-            idx = torch.from_numpy(land).to(dev)
-            out = {k: v.index_select(-2, idx) for k, v in out.items()}
-        out = {k: v.float() for k, v in out.items()}
-        bits = _QUANT_BITS.get(self.transfer_dtype)
-        if bits:
-            out = {k: _quantize(v, bits) for k, v in out.items()}
-        elif self.transfer_dtype:
-            out = {k: v.to(_CASTS[self.transfer_dtype]) for k, v in out.items()}
-        return out if mesh is None else _gather_out(out, mesh, batch)
+        with spans.span("predict_grid.device", device=dev):
+            lik = self.likelihood
+            B, Ht, Wt = task.batch_size, len(xt1), len(xt2)
+            aux_d = None if aux is None else torch.from_numpy(aux).to(dev).expand(B, *aux.shape)
+            raw = self.model(task, target_grid=(torch.from_numpy(xt1).to(dev),
+                                                torch.from_numpy(xt2).to(dev), aux_d), mesh=mesh)
+            raw = lik.rescale_raw(raw, self.std_scale).reshape(B, Ht * Wt, -1)
+            mean, std = lik.mean_std(raw)
+            out = {k: v for k, v in (("mean", mean), ("std", std)) if k in outputs}
+            if n_samples > 0:
+                # over the flattened grid, so the gnp head samples jointly
+                gen = torch.Generator(device=dev).manual_seed(int(seed))
+                with spans.span("predict_grid.sample", device=dev):
+                    out["samples"] = (lik.sample(raw, gen, n_samples) if mesh is None
+                                      else sample_rows(lik, raw, gen, n_samples, mesh, batch))
+            if land is not None:
+                idx = torch.from_numpy(land).to(dev)
+                out = {k: v.index_select(-2, idx) for k, v in out.items()}
+            out = {k: v.float() for k, v in out.items()}
+            bits = _QUANT_BITS.get(self.transfer_dtype)
+            if bits:
+                out = {k: _quantize(v, bits) for k, v in out.items()}
+            elif self.transfer_dtype:
+                out = {k: v.to(_CASTS[self.transfer_dtype]) for k, v in out.items()}
+            return out if mesh is None else _gather_out(out, mesh, batch)
 
     def predict_points(self, task: TaskBatch, unnormalise: bool = True,
                        post_transform=None, mesh=None) -> dict[str, np.ndarray]:

@@ -10,7 +10,8 @@ The library is compiled at first use from the repository's
 flags. The compiler writes a temporary file that is renamed into place, so
 processes that build at once never load a half-written library. When the
 build or the load fails, :func:`build_error` says why and the loader takes
-its Python path. :func:`call_counts` counts the calls that ran natively.
+its Python path. :func:`call_counts` counts the calls that ran natively
+(the perf recorder's ``taskpack.`` counters).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from typing import Optional
 
 import numpy as np
 
+from deepsensornz_tpu_torch.perf import spans
+
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "taskpack.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -33,7 +36,7 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _ERROR: Optional[str] = None
-_CALLS = {"pack_station_batches": 0, "interp_grid_points": 0}
+_CALLS = ("pack_station_batches", "interp_grid_points")
 
 
 def library_path() -> Path:
@@ -102,12 +105,12 @@ def build_error() -> Optional[str]:
 
 
 def call_counts() -> dict:
-    return dict(_CALLS)
+    counts = spans.counters("taskpack.")
+    return {k: counts.get(f"taskpack.{k}", 0) for k in _CALLS}
 
 
 def reset_call_counts() -> None:
-    for k in _CALLS:
-        _CALLS[k] = 0
+    spans.reset("taskpack.")
 
 
 def _ptr(a: np.ndarray, ct):
@@ -146,7 +149,7 @@ def pack_station_batches(times: np.ndarray, x1: np.ndarray, x2: np.ndarray,
         _ptr(out_mask, ctypes.c_float), _ptr(out_counts, ctypes.c_int64))
     if rc != 0:
         raise ValueError(f"station rows exceed capacity {capacity} for at least one date")
-    _CALLS["pack_station_batches"] += 1
+    spans.count("taskpack.pack_station_batches")
     return out_x, out_y, out_mask, out_counts
 
 
@@ -170,5 +173,5 @@ def interp_grid_points_native(grid: np.ndarray, g1: np.ndarray, g2: np.ndarray,
                            _ptr(g1, ctypes.c_double), _ptr(g2, ctypes.c_double),
                            _ptr(px1, ctypes.c_double), _ptr(px2, ctypes.c_double),
                            len(px1), _ptr(out, ctypes.c_float))
-    _CALLS["interp_grid_points"] += 1
+    spans.count("taskpack.interp_grid_points")
     return out

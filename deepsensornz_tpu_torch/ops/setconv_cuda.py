@@ -13,7 +13,8 @@ Counterpart of ``deepsensornz_tpu/ops/setconv_pallas.py``:
 The device decides, not a flag: a CUDA tensor launches the kernel (or the
 wrapper raises), a CPU tensor takes the plain version from :mod:`.setconv`.
 There is no fallback from one to the other. Each wrapper counts its kernel
-launches in ``<wrapper>.launches`` so a run can show which path it took.
+launches in the perf recorder (``launches.<wrapper>``; :func:`launch_counts`)
+so a run can show which path it took.
 
 The encode is differentiable in its length-scale only (the parameter the
 model learns through it); the gridded decode is forward only, since no
@@ -29,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from deepsensornz_tpu_torch.ops import setconv as plain
+from deepsensornz_tpu_torch.perf import spans
 
 # csrc/setconv_encode_grad.cu: grid rows and columns per block (one partial
 # sum each)
@@ -106,7 +108,7 @@ def _encode(x1g, x2g, x, y, mask, lengthscale) -> torch.Tensor:
     _launch("setconv_encode_offgrid", x1g.data_ptr(), x2g.data_ptr(), x.data_ptr(),
             y.data_ptr(), mask.data_ptr(), ls.data_ptr(), out.data_ptr(),
             B, N, H, W, C + 1, device=dev)
-    encode_offgrid.launches += 1
+    spans.count("launches.encode_offgrid")
     return out
 
 
@@ -151,8 +153,6 @@ def encode_offgrid(x1g, x2g, x, y, mask, lengthscale) -> torch.Tensor:
     return _encode(x1g, x2g, x, y, mask, lengthscale)
 
 
-encode_offgrid.launches = 0
-
 
 def encode_offgrid_grad(x1g, x2g, x, y, mask, lengthscale, grad_out, out) -> torch.Tensor:
     """dL/dℓ of :func:`encode_offgrid` given ``grad_out`` = dL/d(output)
@@ -194,11 +194,9 @@ def encode_offgrid_grad(x1g, x2g, x, y, mask, lengthscale, grad_out, out) -> tor
             y.data_ptr(), mask.data_ptr(), ls.data_ptr(), out.data_ptr(),
             grad_out.data_ptr(), stride, scratch.data_ptr(), result.data_ptr(),
             B, N, H, W, C + 1, GRAD_REACH, device=dev)
-    encode_offgrid_grad.launches += 1
+    spans.count("launches.encode_offgrid_grad")
     return result
 
-
-encode_offgrid_grad.launches = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -357,19 +355,18 @@ def decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize: bool = True,
             ranges.data_ptr(), out_cf.data_ptr(), out.data_ptr(), B, C, H, fcf.shape[-1],
             A3.shape[1], Hp, Ht, Wt, t["nTT"], t["nUT"], t["NTg"], t["tiles_per_ut"],
             device=dev)
-    decode_grid.launches += 1
+    spans.count("launches.decode_grid")
     return out
 
-
-decode_grid.launches = 0
 
 KERNELS = (encode_offgrid, encode_offgrid_grad, decode_grid)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    spans.reset("launches.")
 
 
 def launch_counts() -> dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    """Each wrapper's kernel launches since the last reset, by its name."""
+    counts = spans.counters("launches.")
+    return {k.__name__: counts.get(f"launches.{k.__name__}", 0) for k in KERNELS}

@@ -22,8 +22,12 @@ contiguous block of the internal grid's rows (``mesh.row_blocks``):
 Every rank of the group must make the same calls in the same order, or
 the collectives deadlock; the model's graph is the same on every rank, so
 the forward, the backward and a rematerialised recomputation all are.
-``stats`` counts the exchanges and the sums, their bytes and their host
-time.
+The perf recorder counts the exchanges and the sums and their bytes
+(``halo.exchanges``, ``halo.exchange_bytes``, ``halo.sums``,
+``halo.sum_bytes``; the bytes each rank gathers or sums) and, while it
+records, times each collective on the host as the span ``halo.exchange``
+or ``halo.sum`` (for CUDA tensors under gloo, the copies through the host
+included).
 """
 
 from __future__ import annotations
@@ -31,22 +35,12 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import functools
-import time
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-# exchanges: calls of halo (forward and backward); bytes: what each rank
-# gathers; sums: spatial_sum forwards; seconds: host time inside the
-# collectives (for CUDA tensors under gloo, the copies through the host
-# included)
-stats = {"exchanges": 0, "exchange_bytes": 0, "exchange_s": 0.0,
-         "sums": 0, "sum_bytes": 0, "sum_s": 0.0}
-
-
-def reset_stats() -> None:
-    stats.update(exchanges=0, exchange_bytes=0, exchange_s=0.0, sums=0, sum_bytes=0, sum_s=0.0)
+from deepsensornz_tpu_torch.perf import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,11 +154,10 @@ def _pack(x: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def _gather(sp: SpatialContext, t: torch.Tensor) -> list[torch.Tensor]:
-    t0 = time.perf_counter()
-    parts = sp.all_gather(t)
-    stats["exchanges"] += 1
-    stats["exchange_bytes"] += sum(p.numel() * p.element_size() for p in parts)
-    stats["exchange_s"] += time.perf_counter() - t0
+    with spans.span("halo.exchange"):
+        parts = sp.all_gather(t)
+    spans.count("halo.exchanges")
+    spans.count("halo.exchange_bytes", sum(p.numel() * p.element_size() for p in parts))
     return parts
 
 
@@ -218,11 +211,10 @@ class _SpatialSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, sp: SpatialContext):
         out = t.contiguous().clone()
-        t0 = time.perf_counter()
-        sp.all_reduce(out)
-        stats["sums"] += 1
-        stats["sum_bytes"] += out.numel() * out.element_size()
-        stats["sum_s"] += time.perf_counter() - t0
+        with spans.span("halo.sum"):
+            sp.all_reduce(out)
+        spans.count("halo.sums")
+        spans.count("halo.sum_bytes", out.numel() * out.element_size())
         return out
 
     @staticmethod

@@ -9,13 +9,17 @@ Counterpart of ``deepsensornz_tpu/perf/harness.py``:
   (PyTorch returns before the card finishes, so each call ends in a
   synchronise of the device its output lives on),
 - :func:`device_memory_stats` — per-device memory use,
-- :class:`Timer` — labelled wall-clock sections.
+- :class:`Timer` — labelled wall-clock sections,
+- :func:`idle_by_span` — the device's idle time in a Chrome trace put down
+  to the ``perf.spans`` the host was in, on the trace's clock.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
+import json
 import os
 import tempfile
 import time
@@ -126,3 +130,83 @@ def device_memory_stats() -> list[dict]:
             "bytes_limit": torch.cuda.mem_get_info(i)[1],
         })
     return out
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+NO_SPAN = "no span"
+
+
+def device_gaps(trace: dict) -> list[tuple]:
+    """The device's idle gaps between its first and last operation in a
+    loaded Chrome trace: (start, end) in ns on ``time.time_ns()``'s clock
+    (``baseTimeNanoseconds + ts·1000``), the thread that launched the
+    operation after the gap (None where the trace holds no host launch
+    events) and the names of the operations before and after it."""
+    events = trace["traceEvents"]
+    base_ns = int(trace.get("baseTimeNanoseconds", 0))
+    launcher = {e["args"]["correlation"]: e.get("tid") for e in events
+                if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    ops = sorted((base_ns + round(float(e["ts"]) * 1e3),
+                  base_ns + round((float(e["ts"]) + float(e["dur"])) * 1e3),
+                  e.get("name", ""), launcher.get(e.get("args", {}).get("correlation")))
+                 for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    gaps, end, before = [], None, None
+    for a, b, name, tid in ops:
+        if end is not None and a > end:
+            gaps.append((end, a, tid, before, name))
+        if end is None or b > end:
+            end, before = b, name
+    return gaps
+
+
+def charge_gaps(gaps: list, spans) -> dict[str, float]:
+    """Seconds of the ``gaps`` (:func:`device_gaps`) by span name: each
+    instant of a gap goes to the innermost host span open then on the
+    thread that launched the operation after the gap (on every thread
+    where that is unknown or recorded no span), or to ``"no span"``."""
+    host = [s for s in spans if s.device is None]
+    by_id = {s.id: s for s in host}
+    depth = {}
+
+    def level(s) -> int:
+        if s.id not in depth:
+            p = by_id.get(s.parent)
+            depth[s.id] = 0 if p is None else level(p) + 1
+        return depth[s.id]
+
+    threads = {}
+    for s in sorted(host, key=lambda s: s.start_ns):
+        threads.setdefault(s.thread, []).append(s)
+        threads.setdefault(None, []).append(s)
+    starts = {t: [s.start_ns for s in ss] for t, ss in threads.items()}
+    out: dict[str, float] = {}
+    for a, b, tid, *_ in gaps:
+        t = tid if tid in threads else None
+        ss = threads.get(t, [])
+        # the spans open at some instant of [a, b): started before b, ended after a
+        cand = [s for s in ss[:bisect.bisect_left(starts.get(t, []), b)] if s.end_ns > a]
+        cuts = sorted({a, b} | {x for s in cand for x in (s.start_ns, s.end_ns) if a < x < b})
+        for lo, hi in zip(cuts, cuts[1:]):
+            open_ = [s for s in cand if s.start_ns <= lo and s.end_ns >= hi]
+            name = max(open_, key=lambda s: (level(s), s.start_ns)).name if open_ else NO_SPAN
+            out[name] = out.get(name, 0.0) + (hi - lo) / 1e9
+    return out
+
+
+def idle_by_span(trace, spans) -> dict[str, float]:
+    """Seconds of device idle time by span name.
+
+    ``trace``: a Chrome trace written by :func:`profile_trace` (its path,
+    or the loaded object); ``spans``: the spans recorded over the same
+    window (``perf.spans.records()``), whose ``time.time_ns()`` stamps are
+    the trace's ``baseTimeNanoseconds + ts·1000``. Each idle gap between
+    two device operations (kernels, copies, sets) is charged, instant by
+    instant, to the innermost host span open on the thread that launched
+    the operation after the gap (a trace without the host's launch events
+    does not say: every thread's spans), or to ``"no span"`` where none
+    was open (:func:`device_gaps`, :func:`charge_gaps`)."""
+    if not isinstance(trace, dict):
+        with open(trace) as f:
+            trace = json.load(f)
+    return charge_gaps(device_gaps(trace), spans)

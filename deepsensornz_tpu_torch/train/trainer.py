@@ -43,6 +43,7 @@ import torch.distributed as dist
 
 from deepsensornz_tpu_torch.parallel.mesh import data_group, shard_task
 from deepsensornz_tpu_torch.parallel.multihost import replicate_multihost
+from deepsensornz_tpu_torch.perf import spans
 from deepsensornz_tpu_torch.task.batching import pad_batch_to_multiple, take
 from deepsensornz_tpu_torch.task.task import TaskBatch
 
@@ -238,7 +239,10 @@ def train_epoch(model, state: TrainState, tasks: TaskBatch, batch_size: int = 8,
     ends. Under a data-parallel ``step_fn`` (``step_fn.mesh``) every rank
     must draw the same permutation; each batch is padded to a multiple of
     the data axis and stays on the host, and the step uploads this rank's
-    rows only."""
+    rows only. While the perf recorder records, each step is the spans
+    ``train.batch`` (the batch's gather), ``train.upload`` and
+    ``train.launch`` (the step's call), one group a step, and the epoch's
+    loss fetch the span ``train.losses``."""
     step_fn = step_fn or make_train_step(model)
     mesh = getattr(step_fn, "mesh", None)
     rng = rng or np.random.default_rng(0)
@@ -250,12 +254,17 @@ def train_epoch(model, state: TrainState, tasks: TaskBatch, batch_size: int = 8,
     idx = rng.permutation(n) if shuffle else np.arange(n)
     losses = []
     for sel in _batches(idx, batch_size):
-        batch = _take_padded(tasks, sel, padded)
+        group = spans.new_group()
+        with spans.span("train.batch", group=group):
+            batch = _take_padded(tasks, sel, padded)
         if mesh is None:
-            batch = batch.to(device)
-        state, loss = step_fn(state, batch, lr, anchor_scale)
+            with spans.span("train.upload", group=group):
+                batch = batch.to(device)
+        with spans.span("train.launch", group=group):
+            state, loss = step_fn(state, batch, lr, anchor_scale)
         losses.append(loss)
-    return state, torch.stack(losses).cpu().tolist()
+    with spans.span("train.losses"):
+        return state, torch.stack(losses).cpu().tolist()
 
 
 def make_eval_step(model, mesh=None) -> Callable:

@@ -21,7 +21,7 @@ from deepsensornz_tpu_torch.al import GreedyAlgorithm
 from deepsensornz_tpu_torch.infer import ar
 from deepsensornz_tpu_torch.infer.predict import Predictor
 from deepsensornz_tpu_torch.models.convnp import ConvNP, ConvNPConfig
-from deepsensornz_tpu_torch.parallel import halo
+from deepsensornz_tpu_torch.perf import spans
 from deepsensornz_tpu_torch.parallel.mesh import (
     data_shard, make_mesh, row_block, spatial_shard)
 from deepsensornz_tpu_torch.parallel.multihost import initialize_multihost, make_global_mesh
@@ -61,21 +61,29 @@ def grads(inp: dict, out: dict) -> None:
                              "history": res["acquisition_history"]}
 
 
+def halo_counts() -> dict:
+    """The spatial collectives' counters since the last reset: exchanges,
+    exchange_bytes, sums, sum_bytes."""
+    counts = spans.counters("halo.")
+    return {k: counts.get(f"halo.{k}", 0) for k in ("exchanges", "exchange_bytes", "sums",
+                                                     "sum_bytes")}
+
+
 def step(inp: dict, out: dict) -> None:
     mesh = make_mesh(1, 2)
     task = inp["task"]
     for policy in ("off", None, "acts", "dots"):
         kw = {"remat": False} if policy == "off" else {"remat": True, "remat_policy": policy}
         model = _model(inp["cfg"], inp["params"], task, **kw)
-        halo.reset_stats()
+        spans.reset("halo.")
         s, loss = tr.make_train_step(model, mesh=mesh)(tr.init_state(model), task, LR)
-        out[f"step_{policy}"] = {"loss": loss, "params": s.params, "stats": dict(halo.stats)}
+        out[f"step_{policy}"] = {"loss": loss, "params": s.params, "stats": halo_counts()}
     model = _model(inp["cfg"], inp["params"], task).eval()
     pred = Predictor(model, inp["dp"], inp["st_col"])
-    halo.reset_stats()
+    spans.reset("halo.")
     grid = pred.predict_grid(task, inp["dem"], aux_at_targets=inp["aux"], mesh=mesh)
     out["grid"] = {k: grid[k].data for k in ("mean", "std")}
-    out["grid_stats"] = dict(halo.stats)
+    out["grid_stats"] = halo_counts()
     gen = torch.Generator().manual_seed(5)
     out["ar"] = ar.ar_sample(model, task, n_samples=1, n_blocks=3, generator=gen, mesh=mesh)
     out["run"] = train_run(inp, mesh)

@@ -52,10 +52,10 @@ def _points(rng, B, N, C, H, W, p_mask, dev):
 ])
 def test_encode_offgrid_kernel(cuda, B, N, C, H, W, ls, p_mask):
     args = _points(np.random.default_rng(0), B, N, C, H, W, p_mask, cuda) + [ls]
-    before = setconv_cuda.encode_offgrid.launches
+    before = setconv_cuda.launch_counts()["encode_offgrid"]
     with torch.no_grad():
         got = setconv_cuda.encode_offgrid(*args)
-    assert setconv_cuda.encode_offgrid.launches == before + 1
+    assert setconv_cuda.launch_counts()["encode_offgrid"] == before + 1
     _close(got, setconv.setconv_encode_offgrid(*args))
 
 
@@ -103,10 +103,10 @@ def test_sampling_and_ar_run_on_the_card(cuda):
     assert setconv_cuda.launch_counts()["decode_grid"] == 2  # two chunks
     land = ~np.isnan(dem.data)
     assert np.isfinite(out["samples"].data[..., land]).all()
-    before = setconv_cuda.encode_offgrid.launches
+    before = setconv_cuda.launch_counts()["encode_offgrid"]
     s = ar_sample(model, task, n_samples=2, n_blocks=4,
                   generator=torch.Generator(device=cuda).manual_seed(0))
-    assert setconv_cuda.encode_offgrid.launches - before == 2 * 4
+    assert setconv_cuda.launch_counts()["encode_offgrid"] - before == 2 * 4
     assert s.shape == (2, 3, 20, 1) and np.isfinite(s).all()
 
 
@@ -156,10 +156,10 @@ def test_encode_offgrid_grad_kernel(cuda, B, N, C, H, W, ls, p_mask, layout, ups
     args = (x1g, x2g, x, y, mask)
     with torch.no_grad():
         fwd = setconv_cuda.encode_offgrid(*args, ls)
-    before = setconv_cuda.encode_offgrid_grad.launches
+    before = setconv_cuda.launch_counts()["encode_offgrid_grad"]
     got = setconv_cuda.encode_offgrid_grad(*args, ls, g, fwd)
     again = setconv_cuda.encode_offgrid_grad(*args, ls, g, fwd)
-    assert setconv_cuda.encode_offgrid_grad.launches == before + 2
+    assert setconv_cuda.launch_counts()["encode_offgrid_grad"] == before + 2
     assert got.shape == () and torch.equal(got, again)  # the same from run to run
     terms = setconv.encode_offgrid_grad_ls_terms(*args, torch.tensor(ls, dtype=torch.float64),
                                                  g.double())
@@ -217,20 +217,20 @@ def test_encode_offgrid_grad_of_an_upstream_it_cannot_read_in_place(cuda, loss):
         ls = torch.tensor(0.05, device=cuda, requires_grad=True)
         enc = fn(x1g, x2g, x, y, mask, ls)
         total = enc.sum() if loss == "sum" else (enc.permute(0, 3, 1, 2) * g).sum()
-        before = setconv_cuda.encode_offgrid_grad.launches
+        before = setconv_cuda.launch_counts()["encode_offgrid_grad"]
         grads.append(torch.autograd.grad(total, ls)[0])
-        launched = setconv_cuda.encode_offgrid_grad.launches - before
+        launched = setconv_cuda.launch_counts()["encode_offgrid_grad"] - before
         assert launched == (fn is setconv_cuda.encode_offgrid)
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=0)
 
 
 def test_encode_offgrid_grad_empty_point_set(cuda):
     args = _points(np.random.default_rng(0), 2, 0, 1, 16, 16, 0.0, cuda)
-    before = setconv_cuda.encode_offgrid_grad.launches
+    before = setconv_cuda.launch_counts()["encode_offgrid_grad"]
     fwd = setconv_cuda.encode_offgrid(*args, 0.1)
     g = torch.randn(2, 16, 16, 2, device=cuda)
     got = setconv_cuda.encode_offgrid_grad(*args, 0.1, g, fwd)
-    assert float(got) == 0.0 and setconv_cuda.encode_offgrid_grad.launches == before
+    assert float(got) == 0.0 and setconv_cuda.launch_counts()["encode_offgrid_grad"] == before
 
 
 def _grid(B, H, W, C, Ht, Wt, dtype, dev):
@@ -261,9 +261,9 @@ def _grid(B, H, W, C, Ht, Wt, dtype, dev):
 ])
 def test_decode_grid_kernel(cuda, B, H, W, C, Ht, Wt, ls, normalize, dtype):
     args = list(_grid(B, H, W, C, Ht, Wt, dtype, cuda)) + [ls]
-    before = setconv_cuda.decode_grid.launches
+    before = setconv_cuda.launch_counts()["decode_grid"]
     got = setconv_cuda.decode_grid(*args, normalize=normalize)
-    assert setconv_cuda.decode_grid.launches == before + 1
+    assert setconv_cuda.launch_counts()["decode_grid"] == before + 1
     assert got.dtype == torch.float32
     _close(got, setconv.setconv_decode_grid(*args, normalize=normalize))
 
@@ -468,10 +468,10 @@ def test_encode_offgrid_at_the_al_exhaustive_shape(cuda):
     p = tiled.points[0]
     assert p.x.shape == (64, 517, 2) and float(p.mask.sum()) == 64 * 513
     args = [tiled.x1g, tiled.x2g, p.x, p.y, p.mask, 0.004]
-    before = setconv_cuda.encode_offgrid.launches
+    before = setconv_cuda.launch_counts()["encode_offgrid"]
     with torch.no_grad():
         got = setconv_cuda.encode_offgrid(*args)
-    assert setconv_cuda.encode_offgrid.launches == before + 1
+    assert setconv_cuda.launch_counts()["encode_offgrid"] == before + 1
     _close(got, setconv.setconv_encode_offgrid(*args))
 
 

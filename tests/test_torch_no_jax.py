@@ -315,6 +315,7 @@ import numpy as np
 from deepsensornz_tpu_torch.data.synthetic import synthetic_bundle
 from deepsensornz_tpu_torch.pipeline.preprocess import PreprocessForDownscaling
 from deepsensornz_tpu_torch.pipeline.train import Train
+from deepsensornz_tpu_torch.perf import spans
 from deepsensornz_tpu_torch.pipeline.validate import Validate, ValidateERA
 base, dem, stations = synthetic_bundle(n_times=8, base_hw=(16, 16), dem_hw=(48, 48),
                                        n_stations=16)
@@ -347,11 +348,13 @@ vals = [loss["rmse"], cal["z_std"], pit["z_std"], crps["crps"], ext["extrapolati
 assert np.isfinite(vals).all() and crps["crps"] > 0 and sum(map(len, bands["bands"].values()))
 era = ValidateERA(run_dir, dem, highres_factor=2, transfer_dtype="int16", batch_chunk=2,
                   download_threads=3, upload_dtype="float16", device="cpu")
-pred = era.predict(base.coords["time"][1:6], {{"temperature": base}}, station_df=sel,
-                   remove_stations=held)
+with spans.recording():
+    pred = era.predict(base.coords["time"][1:6], {{"temperature": base}}, station_df=sel,
+                       remove_stations=held)
 sea = np.isnan(era.pred_grid.data)
 assert pred["mean"].shape == (5, 24, 24) and np.isfinite(pred["mean"].data[:, ~sea]).all()
-assert set(era.predictor.last_timings) == {{"upload_s", "overlap_s"}}
+counts = {{k: v["count"] for k, v in spans.snapshot().items()}}
+assert counts["predict_grid"] == 1 and counts["predict_grid.launch"] == 3, counts
 empty = ValidateERA(run=era.run, pred_grid=era.pred_grid).predict(
     base.coords["time"][:2], {{"temperature": base}})
 assert np.isnan(empty["std"].data[:, sea]).all() and (empty["std"].data[:, ~sea] > 0).all()

@@ -123,9 +123,9 @@ def test_lengthscale_tensor_matches_float(rng):
 def test_encode_wrapper_matches_pallas(rng, B, N, C, H, W, ls, p_mask, tiles):
     args = _points(rng, B, N, C, H, W, p_mask)
     want = np.asarray(jpl.encode_offgrid(*args, ls, interpret=True, **tiles))
-    before = setconv_cuda.encode_offgrid.launches
+    before = setconv_cuda.launch_counts()["encode_offgrid"]
     got = setconv_cuda.encode_offgrid(*_t(*args), ls).numpy()
-    assert setconv_cuda.encode_offgrid.launches == before  # CPU: plain version
+    assert setconv_cuda.launch_counts()["encode_offgrid"] == before  # CPU: plain version
     _close(got, want)
 
 
@@ -148,9 +148,9 @@ def test_decode_wrapper_matches_pallas(rng, B, H, W, C, Ht, Wt, ls, normalize, t
     # the jitted Pallas wrapper traces `normalize`; call it unjitted
     want = np.asarray(jpl.decode_grid.__wrapped__(*args, ls, normalize=normalize,
                                                   interpret=True, **tiles))
-    before = setconv_cuda.decode_grid.launches
+    before = setconv_cuda.launch_counts()["decode_grid"]
     got = setconv_cuda.decode_grid(*_t(*args), ls, normalize=normalize).numpy()
-    assert setconv_cuda.decode_grid.launches == before
+    assert setconv_cuda.launch_counts()["decode_grid"] == before
     _close(got, want, rtol=1e-4, atol=1e-5)
 
 

@@ -122,10 +122,10 @@ def test_decode_wrapper_takes_bf16_features(normalize):
     f = _features((2, x1g.shape[0], x2g.shape[0], 3), bf16_exact=True)
     want = np.asarray(jsc.setconv_decode_grid(x1g.numpy(), x2g.numpy(), f.numpy(),
                                               xt1.numpy(), xt2.numpy(), SERVING_LS, normalize))
-    before = setconv_cuda.decode_grid.launches
+    before = setconv_cuda.launch_counts()["decode_grid"]
     got = setconv_cuda.decode_grid(x1g, x2g, f.to(torch.bfloat16), xt1, xt2, SERVING_LS,
                                    normalize=normalize)
-    assert setconv_cuda.decode_grid.launches == before  # CPU: plain version
+    assert setconv_cuda.launch_counts()["decode_grid"] == before  # CPU: plain version
     assert got.dtype == torch.float32
     scale = max(1.0, float(np.abs(want).max()))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6 * scale)

@@ -29,6 +29,7 @@ from deepsensornz_tpu.pipeline.train import Train
 from deepsensornz_tpu_torch.data.frame import StationFrame
 from deepsensornz_tpu_torch.data.grid import Field
 from deepsensornz_tpu_torch.infer.predict import Predictor
+from deepsensornz_tpu_torch.perf import spans
 from deepsensornz_tpu_torch.pipeline import validate as tvalidate
 
 pd = pytest.importorskip("pandas")
@@ -192,6 +193,16 @@ def _quantum(levels):
     return tol
 
 
+def _recorded(fn):
+    """``fn()`` with the perf recorder on, and the spans' count by name."""
+    spans.clear()
+    with spans.recording():
+        out = fn()
+    counts = {k: v["count"] for k, v in spans.snapshot().items()}
+    spans.clear()
+    return out, counts
+
+
 @pytest.mark.parametrize("mode", [dict(), dict(transfer_dtype="float16"),
                                   dict(transfer_dtype="bfloat16"), dict(transfer_dtype="int16"),
                                   dict(transfer_dtype="int8"), dict(upload_dtype="float16"),
@@ -201,7 +212,7 @@ def _quantum(levels):
 def test_transfer_modes_match_jax(run, mode):
     jp, p = _predictors(run, **mode)
     want = _grid_call(run, jp, True, unnormalise=False)
-    got = _grid_call(run, p, False, unnormalise=False)
+    got, counts = _recorded(lambda: _grid_call(run, p, False, unnormalise=False))
     t = mode.get("transfer_dtype")
     tol = None
     if t in ULP:
@@ -209,8 +220,12 @@ def test_transfer_modes_match_jax(run, mode):
     elif t in LEVELS:
         tol = _quantum(LEVELS[t])
     _assert_fields_close(got, want, tol)
+    chunks = -(-got["mean"].data.shape[0] // mode.get("batch_chunk", 10**9))
+    assert counts["predict_grid"] == counts["predict_grid.upload"] == 1
+    assert counts["predict_grid.launch"] == counts["predict_grid.download"] == chunks
     if "batch_chunk" in mode:
-        assert set(p.last_timings) == {"upload_s", "overlap_s"} == set(jp.last_timings)
+        assert chunks > 1 and counts["predict_grid.maps"] == chunks + 1
+        assert set(jp.last_timings) == {"upload_s", "overlap_s"}
 
 
 @pytest.mark.parametrize("t", ["int16", "int8"])
@@ -240,13 +255,16 @@ def test_download_threads_are_bitwise_one_thread(run, t):
     maps = []
     for threads in (1, 8):
         _, p = _predictors(run, transfer_dtype=t, batch_chunk=2, download_threads=threads)
-        maps.append(_grid_call(run, p, False, n_samples=2, seed=3))
-        assert set(p.last_timings) == {"upload_s", "overlap_s"}
+        got, counts = _recorded(lambda: _grid_call(run, p, False, n_samples=2, seed=3))
+        maps.append(got)
+        chunks = -(-got["mean"].data.shape[0] // 2)
+        assert counts["predict_grid.launch"] == counts["predict_grid.sample"] == chunks > 1
+        assert counts["predict_grid.maps"] == chunks + 1
     for key in ("mean", "std", "samples"):
         assert maps[0][key].data.tobytes() == maps[1][key].data.tobytes(), key
     _, whole = _predictors(run, transfer_dtype=t)
-    one = _grid_call(run, whole, False)
-    assert whole.last_timings is None
+    one, counts = _recorded(lambda: _grid_call(run, whole, False))
+    assert counts["predict_grid.launch"] == 1
     _assert_fields_close({k: maps[1][k] for k in ("mean", "std")}, one,
                          _quantum(LEVELS["int16"]) if t == "int16" else
                          (lambda d: ULP["float16"] * np.abs(d)) if t else None)
