@@ -9,8 +9,12 @@ Counterpart of ``Predictor`` in ``deepsensornz_tpu/infer/predict.py``:
   whole grid; gathers the land cells on the device, and returns them
   unnormalised as ``Field``s with NaN sea cells. ``batch_chunk`` splits a
   long batch into fixed-size chunks: every chunk is launched first, and
-  ``download_threads`` workers copy, dequantise and scatter each chunk's
-  result into the full maps while the later chunks run.
+  ``download_threads`` workers copy each chunk's result and write its rows
+  of the maps while the later chunks run (unchunked, as many workers write
+  a map each). The host's maps are computed on
+  the land values alone (dequantise, ``post_transform``, which must be
+  elementwise, and unnormalise), and each ``Field``'s array is written
+  once, by one gather that puts NaN on the sea cells.
 - ``predict_points`` gives mean/std (and ``p_wet`` for bernoulli-gamma) at
   the task's off-grid targets.
 - ``ar_sample_grid`` draws coherent AR samples on a subsampled grid and
@@ -41,10 +45,14 @@ span ``predict_grid`` and its children: ``.prepare`` (the target
 coordinates, the aux resampled onto the target grid, the sea mask),
 ``.upload``, ``.launch`` (the host's enqueue of the forward),
 ``.download`` (issuing the copies to pinned memory), ``.wait`` (for the
-copies, or for the chunks' workers), ``.maps`` (dequantise, scatter,
-``post_transform``, unnormalise, ``Field``s; one per chunk on its worker
-thread, under the request); and the device spans ``.device`` (all of the
-forward's device work) with ``.sample`` (the head's draws) inside it.
+copies, or for the chunks' workers), ``.maps`` (on the land values:
+dequantise, ``post_transform``, unnormalise; then each map written once;
+one per chunk on its worker thread, under the request; and one around the
+``Field``s); and the device spans ``.device`` (all of the forward's device
+work) with ``.sample`` (the head's draws) inside it. Counters
+``predict_grid.maps_values`` and ``predict_grid.maps_cells`` add, per map
+written, the land values computed on and the grid cells written: their
+ratio is the share of the grid the host computed on.
 """
 
 from __future__ import annotations
@@ -130,8 +138,11 @@ def _dequantize_host(d) -> np.ndarray:
     if not isinstance(d, dict):
         return d.float().numpy()
     q = d["q"].numpy()
-    half = float(2 ** (q.dtype.itemsize * 8 - 1))
-    return (q.astype(np.float32) + half) * d["scale"].numpy() + d["lo"].numpy()
+    a = q.astype(np.float32)
+    a += float(2 ** (q.dtype.itemsize * 8 - 1))
+    a *= d["scale"].numpy()
+    a += d["lo"].numpy()
+    return a
 
 
 def _download(out: dict, device: torch.device) -> tuple[dict, Optional[torch.cuda.Event]]:
@@ -187,25 +198,42 @@ def _gather_out(out: dict, mesh, batch: int) -> dict:
             for k, v in out.items()}
 
 
-def _scatter(a: np.ndarray, land: Optional[np.ndarray], Ht: int, Wt: int) -> np.ndarray:
-    """(..., cells, C) → (..., Ht, Wt, C), NaN outside ``land`` when given."""
-    lead = a.shape[:-2]
-    if land is not None:
-        full = np.full(lead + (Ht * Wt, a.shape[-1]), np.nan, np.float32)
-        full[..., land, :] = a
-        a = full
-    return a.reshape(lead + (Ht, Wt, a.shape[-1]))
+def _inverse_index(land: np.ndarray, cells: int) -> np.ndarray:
+    """Each grid cell's position in the compact row of ``land`` values; a
+    sea cell's is the NaN slot after the row (``len(land)``)."""
+    inv = np.full(cells, len(land), np.intp)
+    inv[land] = np.arange(len(land))
+    return inv
 
 
-def _scatter_into(dst: np.ndarray, a: np.ndarray, land: Optional[np.ndarray]) -> None:
-    """Write (n, cells, C) into the contiguous (n, Ht, Wt, C) ``dst``, NaN
-    outside ``land`` when given."""
-    flat = dst.reshape(dst.shape[0], -1, dst.shape[-1])
-    if land is None:
-        flat[...] = a
+def _gather_into(dst: np.ndarray, src: np.ndarray, inv: Optional[np.ndarray],
+                 scale: Optional[float] = None, offset: Optional[float] = None) -> None:
+    """Write the compact values ``src`` (m, L) into the C-contiguous float32
+    map ``dst`` (m, Ht, Wt) in one pass: a gather through ``inv``
+    (:func:`_inverse_index`) from each row extended by its NaN slot, or a
+    plain copy where ``inv`` is None (every cell is in the row). With
+    ``scale``, the values are first unnormalised in float64 (``src·scale``,
+    plus ``offset`` when given) and rounded once to float32. Counts the
+    values under ``predict_grid.maps_values`` and the cells written under
+    ``predict_grid.maps_cells``."""
+    flat = dst.reshape(len(dst), -1)
+    if inv is None:
+        row = flat
     else:
-        flat[...] = np.nan
-        flat[:, land, :] = a
+        ext = np.empty((len(src), src.shape[-1] + 1), np.float32)
+        ext[:, -1] = np.nan
+        row = ext[:, :-1]
+    if scale is None:
+        row[...] = src
+    elif offset is None:
+        np.multiply(src, scale, out=row, dtype=np.float64)
+    else:
+        np.add(np.multiply(src, scale, dtype=np.float64), offset, out=row)
+    if inv is not None:
+        # mode="raise" with out= would buffer a second copy of the map
+        np.take(ext, inv, axis=1, out=flat, mode="clip")
+    spans.count("predict_grid.maps_values", src.size)
+    spans.count("predict_grid.maps_cells", flat.size)
 
 
 class Predictor:
@@ -217,8 +245,9 @@ class Predictor:
     device memory is bounded by the chunk, not the batch. The batch is
     uploaded once and every chunk launched before the first result is
     read; ``download_threads`` workers wait for each chunk's copy to the
-    host and dequantise and scatter it into the full maps, so the copies
-    overlap the chunks still running. Mean and std do not depend on the
+    host and write its rows of the maps, so the copies overlap the chunks
+    still running. A request in one piece has its maps written by as many
+    workers, a map each. Mean and std do not depend on the
     chunking or the number of threads; joint samples draw per-chunk seeds
     (``seed + chunk offset``) and depend on the chunking.
 
@@ -285,26 +314,33 @@ class Predictor:
         the grid, drawn from a generator seeded with ``seed``.
         ``post_transform(mean, std) -> (mean, std)`` maps the normalised
         moments before unnormalisation; it is applied to the samples as
-        ``post_transform(samples, None)``. ``mesh``: split the batch over
+        ``post_transform(samples, None)``. It must be elementwise: it sees
+        the land values only, (…, land cells, dy) arrays (with a chunked
+        batch, one chunk's tasks at a time). ``mesh``: split the batch over
         the data ranks (module docstring).
+
+        The host's maps (the ``.maps`` spans) are computed on the land
+        values that left the device: dequantised, post-transformed and
+        unnormalised there, and each channel's map is then written once,
+        straight into the array its ``Field`` holds, NaN on the sea.
         """
         if "mean" not in outputs or not set(outputs) <= {"mean", "std"}:
             raise ValueError(f"outputs must be ('mean','std') or ('mean',); got {outputs}")
         with spans.span("predict_grid"):
             with spans.span("predict_grid.prepare"):
-                lat, lon, xt1, xt2, aux, land = self._prepare(
+                lat, lon, xt1, xt2, aux, land, inv = self._prepare(
                     task, target_elev, aux_at_targets, sea_mask, resolution_factor)
-            mean, std, samples = self._forward_chunked(task, xt1, xt2, aux, n_samples, seed,
-                                                       outputs, land, mesh)
+            maps = self._forward_chunked(task, xt1, xt2, aux, n_samples, seed, outputs, land,
+                                         inv, unnormalise, post_transform, mesh)
             with spans.span("predict_grid.maps"):
-                return self._fields(task, lat, lon, mean, std, samples, times, n_samples,
-                                    unnormalise, post_transform)
+                return self._fields(task, lat, lon, maps, times, n_samples)
 
     def _prepare(self, task, target_elev, aux_at_targets, sea_mask, resolution_factor):
-        """(lat, lon, xt1, xt2, aux, land) of a gridded request: the target
-        grid's coordinates, raw and normalised, the aux channels resampled
-        onto it (Ht, Wt, A) or None, and the land cells' flat indices or
-        None."""
+        """(lat, lon, xt1, xt2, aux, land, inv) of a gridded request: the
+        target grid's coordinates, raw and normalised, the aux channels
+        resampled onto it (Ht, Wt, A) or None, and the land cells' flat
+        indices and their inverse index (:func:`_inverse_index`), or None
+        and None."""
         lat = target_elev.coords[target_elev.dims[-2]]
         lon = target_elev.coords[target_elev.dims[-1]]
         if resolution_factor != 1.0:
@@ -335,28 +371,16 @@ class Predictor:
                                  f"grid aux has {aux.shape[-1]}")
 
         # sea cells come back NaN: only land cells leave the device
-        land = None
+        land = inv = None
         if sea_mask:
             sea2d = np.isnan(target_elev.data)
             if sea2d.any():
                 land = np.flatnonzero(~sea2d.ravel())
-        return lat, lon, xt1, xt2, aux, land
+                inv = _inverse_index(land, sea2d.size)
+        return lat, lon, xt1, xt2, aux, land, inv
 
-    def _fields(self, task, lat, lon, mean, std, samples, times, n_samples, unnormalise,
-                post_transform) -> Prediction:
-        """The host maps, post-transformed and unnormalised, as ``Field``s."""
-        if post_transform is not None:
-            mean, std = post_transform(mean, std)
-            if samples is not None:
-                samples, _ = post_transform(samples, None)
-        if unnormalise:
-            scale, offset = self._affines()
-            mean = mean * scale + offset
-            if std is not None:
-                std = std * np.abs(scale)
-            if samples is not None:
-                samples = samples * scale + offset
-
+    def _fields(self, task, lat, lon, maps, times, n_samples) -> Prediction:
+        """The finished maps as ``Field``s (no copy)."""
         if times is None:
             times = np.arange(task.batch_size)
         dims = ("time", "latitude", "longitude")
@@ -364,26 +388,67 @@ class Predictor:
         fields = {}
         for c, var in enumerate(self.target_vars):
             suffix = "" if len(self.target_vars) == 1 else f"_{var}"
-            fields[f"mean{suffix}"] = Field(mean[..., c].astype(np.float32), dims, coords,
-                                            f"mean{suffix}", {"variable": var})
-            if std is not None:
-                fields[f"std{suffix}"] = Field(std[..., c].astype(np.float32), dims, coords,
-                                               f"std{suffix}", {"variable": var})
-            if samples is not None:
+            fields[f"mean{suffix}"] = Field(maps["mean"][c], dims, coords, f"mean{suffix}",
+                                            {"variable": var})
+            if "std" in maps:
+                fields[f"std{suffix}"] = Field(maps["std"][c], dims, coords, f"std{suffix}",
+                                               {"variable": var})
+            if "samples" in maps:
                 fields[f"samples{suffix}"] = Field(
-                    samples[..., c].astype(np.float32), ("sample",) + dims,
+                    maps["samples"][c], ("sample",) + dims,
                     {"sample": np.arange(n_samples), **coords}, f"samples{suffix}", {})
         return Prediction(fields)
 
-    def _forward_chunked(self, task, xt1, xt2, aux, n_samples, seed, outputs, land, mesh=None):
-        """Host float32 maps mean/std (B, Ht, Wt, dy) and samples
-        (n, B, Ht, Wt, dy) or None, NaN outside ``land`` when given: one
-        forward of the whole batch, or chunk by chunk when ``batch_chunk``
-        is set and exceeded; with ``mesh``, each forward over the data
-        ranks' rows, gathered before the download."""
+    def _write_maps(self, maps, host, off, n, inv, unnormalise, post_transform,
+                    pool: Optional[ThreadPoolExecutor] = None) -> None:
+        """Rows ``off:off + n`` of every map in ``maps`` from the first ``n``
+        tasks of a downloaded ``host`` tree, computed on its compact values:
+        dequantised (float32), ``post_transform``-ed, then each channel
+        unnormalised (float64, rounded once to float32) and gathered into
+        its map (:func:`_gather_into`), one map (a key, channel and sample)
+        a job on ``pool``'s workers when given."""
+        vals = {}
+        for k, v in host.items():
+            a = _dequantize_host(v)
+            vals[k] = a[:, :n] if k == "samples" else a[:n]
+        if post_transform is not None:
+            vals["mean"], std = post_transform(vals["mean"], vals.get("std"))
+            if "std" in vals:
+                vals["std"] = std
+            if "samples" in vals:
+                vals["samples"], _ = post_transform(vals["samples"], None)
+        scale, offset = self._affines() if unnormalise else (None, None)
+        jobs = []
+        for k, a in vals.items():
+            for c, dst in enumerate(maps[k]):
+                if scale is None:
+                    affine = (None, None)
+                elif k == "std":
+                    affine = (np.abs(scale[c]), None)
+                else:
+                    affine = (scale[c], offset[c])
+                if k == "samples":
+                    jobs += [(dst[i, off:off + n], a[i, ..., c], inv, *affine)
+                             for i in range(len(a))]
+                else:
+                    jobs.append((dst[off:off + n], a[..., c], inv, *affine))
+        list((pool.map if pool else map)(lambda job: _gather_into(*job), jobs))
+
+    def _forward_chunked(self, task, xt1, xt2, aux, n_samples, seed, outputs, land, inv,
+                         unnormalise, post_transform, mesh=None) -> dict:
+        """The request's finished float32 maps, one list of ``dim_yt``
+        channels a key: mean/std (B, Ht, Wt) and samples (n, B, Ht, Wt),
+        NaN outside ``land`` when given (:meth:`_write_maps`). One forward
+        of the whole batch, or chunk by chunk when ``batch_chunk`` is set
+        and exceeded, each chunk's rows written on a worker; with ``mesh``,
+        each forward over the data ranks' rows, gathered before the
+        download."""
         dev = self.device
         B, chunk = task.batch_size, self.batch_chunk
         Ht, Wt, dy = len(xt1), len(xt2), self.model.cfg.dim_yt
+        maps = {k: [np.empty((B, Ht, Wt), np.float32) for _ in range(dy)] for k in outputs}
+        if n_samples > 0:
+            maps["samples"] = [np.empty((n_samples, B, Ht, Wt), np.float32) for _ in range(dy)]
         if not chunk or B <= chunk:
             with torch.inference_mode():
                 with spans.span("predict_grid.upload"):
@@ -398,26 +463,16 @@ class Predictor:
             with spans.span("predict_grid.wait"):
                 if event is not None:
                     event.synchronize()
-            with spans.span("predict_grid.maps"):
-                got = {k: _scatter(_dequantize_host(v), land, Ht, Wt) for k, v in host.items()}
-            return got["mean"], got.get("std"), got.get("samples")
-
-        full = {k: np.empty((B, Ht, Wt, dy), np.float32) for k in outputs}
-        if n_samples > 0:
-            full["samples"] = np.empty((n_samples, B, Ht, Wt, dy), np.float32)
+            with spans.span("predict_grid.maps"), ThreadPoolExecutor(self.download_threads) as pool:
+                self._write_maps(maps, host, 0, B, inv, unnormalise, post_transform, pool)
+            return maps
 
         def fetch_into(host, event, off, request):
             if event is not None:
                 event.synchronize()
-            n = min(off + chunk, B) - off
             with spans.span("predict_grid.maps", parent=request):
-                for k, v in host.items():
-                    a = _dequantize_host(v)
-                    if k == "samples":
-                        for i in range(n_samples):
-                            _scatter_into(full[k][i, off:off + n], a[i, :n], land)
-                    else:
-                        _scatter_into(full[k][off:off + n], a[:n], land)
+                self._write_maps(maps, host, off, min(off + chunk, B) - off, inv, unnormalise,
+                                 post_transform)
 
         offsets = range(0, B, chunk)
         chunks = []  # each chunk's task indices, the tail padded with its last task
@@ -448,7 +503,7 @@ class Predictor:
                     for f in futures:
                         f.result()
                     pool.shutdown()
-        return full["mean"], full.get("std"), full.get("samples")
+        return maps
 
     def _device_forward(self, task, xt1, xt2, aux, n_samples, seed, outputs, land,
                         mesh=None, batch: int = 0) -> dict:

@@ -48,6 +48,7 @@ from deepsensornz_tpu_torch.infer.predict import Predictor
 from deepsensornz_tpu_torch.models import likelihoods as tlik
 from deepsensornz_tpu_torch.task.batching import take
 from deepsensornz_tpu_torch.models.convnp import ConvNP, ConvNPConfig
+from deepsensornz_tpu_torch.perf import spans
 from deepsensornz_tpu_torch.ops import grids as tgrids
 from deepsensornz_tpu_torch.task import task as ttaskmod
 from deepsensornz_tpu_torch.task.task import TaskBatch
@@ -327,6 +328,137 @@ def test_chunked_predict_matches_unchunked(setting):
                                    rtol=1e-5, atol=1e-5 * float(np.nanmax(np.abs(one["mean"].data))))
     with pytest.raises(ValueError):
         Predictor(s["model"], s["dp"], s["st_col"], batch_chunk=0)
+
+
+@pytest.fixture(scope="module")
+def two_channel_model(setting):
+    cfg = dataclasses.replace(setting["jcfg"], likelihood="cnp", dim_yt=2)
+    return ConvNP.from_task(ConvNPConfig(**dataclasses.asdict(cfg)), setting["task"],
+                            generator=torch.Generator().manual_seed(2))
+
+
+def _shift(mean, std):
+    return mean + 0.5, None if std is None else std * 1.5
+
+
+def _dequantize_as_before(d):
+    if not isinstance(d, dict):
+        return d.float().numpy()
+    q = d["q"].numpy()
+    half = float(2 ** (q.dtype.itemsize * 8 - 1))
+    return (q.astype(np.float32) + half) * d["scale"].numpy() + d["lo"].numpy()
+
+
+def _maps_as_before(pred, hosts, land, B, Ht, Wt, chunk, unnormalise, post_transform):
+    """The host pipeline the gridded maps had before they were computed on
+    the land values: each downloaded chunk dequantised, its rows scattered
+    into NaN-filled whole-grid maps, ``post_transform``, the float64 affine
+    on the whole grid, then a float32 copy per channel."""
+    rows = {}
+    for i, host in enumerate(hosts):
+        n = min(B - i * chunk, chunk)
+        for k, v in host.items():
+            a = _dequantize_as_before(v)
+            rows.setdefault(k, []).append(a[:, :n] if k == "samples" else a[:n])
+    full = {}
+    for k, parts in rows.items():
+        a = np.concatenate(parts, axis=int(k == "samples"))
+        lead, dy = a.shape[:-2], a.shape[-1]
+        if land is not None:
+            grid = np.full(lead + (Ht * Wt, dy), np.nan, np.float32)
+            grid[..., land, :] = a
+            a = grid
+        full[k] = a.reshape(lead + (Ht, Wt, dy))
+    mean, std, samples = full["mean"], full.get("std"), full.get("samples")
+    if post_transform is not None:
+        mean, std = post_transform(mean, std)
+        if samples is not None:
+            samples, _ = post_transform(samples, None)
+    if unnormalise:
+        scale, offset = pred._affines()
+        mean = mean * scale + offset
+        std = None if std is None else std * np.abs(scale)
+        samples = None if samples is None else samples * scale + offset
+    out = {}
+    for c, var in enumerate(pred.target_vars):
+        suffix = "" if len(pred.target_vars) == 1 else f"_{var}"
+        for key, a in (("mean", mean), ("std", std), ("samples", samples)):
+            if a is not None:
+                out[key + suffix] = a[..., c].astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("chunk", [None, 2], ids=["whole", "chunk2"])
+@pytest.mark.parametrize("post", [False, True], ids=["plain", "shift"])
+@pytest.mark.parametrize("unnormalise", [True, False], ids=["phys", "norm"])
+@pytest.mark.parametrize("n_samples", [0, 2], ids=["moments", "samples2"])
+@pytest.mark.parametrize("dy", [1, 2], ids=["dy1", "dy2"])
+@pytest.mark.parametrize("sea_mask", [True, False], ids=["land", "grid"])
+@pytest.mark.parametrize("transfer", [None, "float16", "int16", "int8"])
+def test_maps_are_bitwise_the_whole_grid_pipeline(setting, two_channel_model, monkeypatch,
+                                                  transfer, sea_mask, dy, n_samples,
+                                                  unnormalise, post, chunk):
+    """The maps computed on the land values and gathered once equal, bit for
+    bit and NaN for NaN, the whole-grid pipeline fed the same downloads:
+    five tasks, so chunks of 2 pad the tail."""
+    s = setting
+    hosts = []
+
+    def recorded(out, device):
+        got = download(out, device)
+        hosts.append(got[0])
+        return got
+
+    download = tpredict._download
+    monkeypatch.setattr(tpredict, "_download", recorded)
+    model = s["model"] if dy == 1 else two_channel_model
+    target = s["st_col"] if dy == 1 else [s["st_col"]] * 2
+    pred = Predictor(model, s["dp"], target, transfer_dtype=transfer, batch_chunk=chunk,
+                     download_threads=2)
+    task = take(s["task"], [0, 1, 0, 1, 0])
+    post_transform = _shift if post else None
+    out = pred.predict_grid(task, s["dem"], aux_at_targets=s["aux"], n_samples=n_samples,
+                            seed=5, sea_mask=sea_mask, unnormalise=unnormalise,
+                            post_transform=post_transform)
+    Ht, Wt = s["dem"].shape
+    land = np.flatnonzero(~np.isnan(s["dem"].data.ravel())) if sea_mask else None
+    want = _maps_as_before(pred, hosts, land, 5, Ht, Wt, chunk or 5, unnormalise,
+                           post_transform)
+    assert len(hosts) == (1 if chunk is None else 3)
+    assert list(out) == list(want)
+    for key, w in want.items():
+        g = out[key].data
+        assert g.dtype == w.dtype == np.float32 and g.shape == w.shape, key
+        nan = np.isnan(w)
+        np.testing.assert_array_equal(np.isnan(g), nan, err_msg=key)
+        np.testing.assert_array_equal(g.view(np.uint32)[~nan], w.view(np.uint32)[~nan],
+                                      err_msg=key)
+    mean = out["mean" if dy == 1 else f"mean_{s['st_col']}"].data
+    assert sea_mask == bool(np.isnan(mean).any())
+
+
+@pytest.mark.parametrize("sea_mask", [True, False], ids=["land", "grid"])
+def test_maps_count_the_land_values_and_the_cells(setting, sea_mask):
+    """``predict_grid.maps_values`` over ``predict_grid.maps_cells`` is the
+    share of the grid the host computed on: the DEM's land share with the
+    sea mask, 1 without it; a request with 2 samples writes (2 + 2) maps."""
+    s = setting
+    names = ("predict_grid.maps_values", "predict_grid.maps_cells")
+    before = spans.counters("predict_grid.")
+    try:
+        with spans.recording():
+            s["pred"].predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"], n_samples=2,
+                                   sea_mask=sea_mask)
+    finally:
+        spans.clear()
+    after = spans.counters("predict_grid.")
+    values, cells = (after.get(k, 0) - before.get(k, 0) for k in names)
+    B, (Ht, Wt) = s["task"].batch_size, s["dem"].shape
+    land = int((~np.isnan(s["dem"].data)).sum()) if sea_mask else Ht * Wt
+    assert cells == (2 + 2) * B * Ht * Wt
+    assert values == (2 + 2) * B * land
+    assert values / cells == (land / (Ht * Wt) if sea_mask else 1.0)
+    assert sea_mask == (land < Ht * Wt)
 
 
 def test_ar_sample_grid_fields(setting):
