@@ -22,6 +22,13 @@ numerator and the normaliser both; :func:`..parallel.halo.spatial_sum`
 adds the partials over the spatial group, and the head, the likelihood and
 the loss run replicated on the sum.
 
+While the perf recorder records (:mod:`..perf.spans`), two device spans
+time a gridded request's resamples: ``model.encode_grid`` (every gridded
+context onto the internal grid) and ``model.decode_grid`` (on a target
+grid: the decode, the aux appended and the MLP head), with the counters
+``model.encode_grid_cells`` (source cells × channel planes, density
+included) and ``model.decode_grid_cells`` (target cells decoded).
+
 The module is built explicitly from a task's shapes
 (:meth:`ConvNP.from_task`); its ``state_dict`` names mirror the flax tree
 (``unet.down_0.weight`` ↔ ``params/unet/down_0/kernel``, see
@@ -47,6 +54,7 @@ from deepsensornz_tpu_torch.ops.setconv import (
     DENSITY_EPS, rbf, setconv_decode_offgrid, setconv_decode_offgrid_parts, setconv_encode_grid)
 from deepsensornz_tpu_torch.parallel.halo import SpatialContext, spatial_context, spatial_sum
 from deepsensornz_tpu_torch.parallel.mesh import DATA_AXIS, SPATIAL_AXIS, spatial_shard
+from deepsensornz_tpu_torch.perf import spans
 from deepsensornz_tpu_torch.task.task import TaskBatch
 
 
@@ -232,9 +240,13 @@ class ConvNP(nn.Module):
         """Every context set on the internal grid, concatenated: (B, H, W, Σ(C+1));
         with ``spatial``, on this rank's block of rows."""
         x1g = task.x1g if spatial is None else task.x1g[spatial.start:spatial.stop]
-        enc = [setconv_encode_grid(x1g, task.x2g, g.x1, g.x2, g.y,
-                                   self.lengthscale(f"ls_grid_{i}"), g.mask)
-               for i, g in enumerate(task.grids)]
+        with spans.span("model.encode_grid", device=x1g.device) as s:
+            enc = [setconv_encode_grid(x1g, task.x2g, g.x1, g.x2, g.y,
+                                       self.lengthscale(f"ls_grid_{i}"), g.mask)
+                   for i, g in enumerate(task.grids)]
+            if s is not None:
+                spans.count("model.encode_grid_cells",
+                            sum(g.y.shape[:-1].numel() * (g.y.shape[-1] + 1) for g in task.grids))
         enc += [setconv_cuda.encode_offgrid(x1g, task.x2g, p.x, p.y, p.mask,
                                             self.lengthscale(f"ls_points_{i}"))
                 for i, p in enumerate(task.points)]
@@ -266,14 +278,25 @@ class ConvNP(nn.Module):
         """``mesh``: the mesh whose spatial axis partitions the internal
         grid, where ``mesh_axes`` is set (module docstring); every rank of
         a spatial group passes the same task rows and gets the same output."""
-        cfg = self.cfg
         sp = self.spatial_context(task, mesh)
         f = self.features(task, sp)
-        ls_dec = self.lengthscale("ls_decoder")
         if target_grid is None:
-            aux = task.yt_aux
-        else:
-            xt1, xt2, aux = target_grid
+            return self._decode_head(task, f, None, task.yt_aux, sp)
+        xt1, xt2, aux = target_grid
+        with spans.span("model.decode_grid", device=f.device) as s:
+            raw = self._decode_head(task, f, (xt1, xt2), aux, sp)
+            if s is not None:
+                spans.count("model.decode_grid_cells", raw.shape[:-1].numel())
+        return raw
+
+    def _decode_head(self, task: TaskBatch, f, target_grid: Optional[tuple], aux,
+                     sp: Optional[SpatialContext]) -> torch.Tensor:
+        """The features decoded at ``task.xt``, or on the grid
+        ``target_grid`` = (xt1, xt2), the aux appended, the MLP head."""
+        cfg = self.cfg
+        ls_dec = self.lengthscale("ls_decoder")
+        if target_grid is not None:
+            xt1, xt2 = target_grid
         first = getattr(self, self.first_name)
         k0, b0 = first.weight, first.bias  # (out, in), (out,)
         dc = cfg.decoder_channels

@@ -258,14 +258,18 @@ def _grid(B, H, W, C, Ht, Wt, dtype, dev):
     (1, 90, 200, 5, 81, 400, 0.3, True),     # wide ℓ, three target-column blocks
     (1, 608, 608, 2, 64, 1040, 0.005, True),  # Wt >= 1024 at the serving source grid
     (1, 608, 96, 3, 278, 260, 0.005, False),  # serving target rows, unnormalised
+    (1, 608, 608, 64, 1390, 1300, 0.005, True),  # the 0.01° WRF grid, a task
+    (24, 608, 608, 64, 1390, 1300, 0.005, True),  # its 24-task chunk: past 2^31 output elements
 ])
 def test_decode_grid_kernel(cuda, B, H, W, C, Ht, Wt, ls, normalize, dtype):
-    args = list(_grid(B, H, W, C, Ht, Wt, dtype, cuda)) + [ls]
+    x1g, x2g, f, xt1, xt2 = _grid(B, H, W, C, Ht, Wt, dtype, cuda)
     before = setconv_cuda.launch_counts()["decode_grid"]
-    got = setconv_cuda.decode_grid(*args, normalize=normalize)
+    got = setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, ls, normalize=normalize)
     assert setconv_cuda.launch_counts()["decode_grid"] == before + 1
     assert got.dtype == torch.float32
-    _close(got, setconv.setconv_decode_grid(*args, normalize=normalize))
+    for b in range(B):  # a task at a time: the last ones' offsets pass 2^31
+        _close(got[b], setconv.setconv_decode_grid(x1g, x2g, f[b:b + 1], xt1, xt2, ls,
+                                                   normalize=normalize)[0])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -20,6 +20,8 @@ from deepsensornz_tpu_torch.train.trainer import init_state, make_train_step, tr
 
 REQUEST_CHILDREN = {"predict_grid.prepare", "predict_grid.upload", "predict_grid.launch",
                     "predict_grid.download", "predict_grid.wait", "predict_grid.maps"}
+# the model's device spans of a gridded forward, inside ``predict_grid.device``
+MODEL_SPANS = {"model.encode_grid", "model.decode_grid"}
 
 
 @pytest.fixture(autouse=True)
@@ -312,12 +314,15 @@ def test_predict_grid_records_its_spans(tiny, chunk, threads, n_samples, monkeyp
     roots = recs["predict_grid"]
     n_chunks = 1 if chunk is None else -(-task.batch_size // chunk)
     assert len(roots) == 2
-    want = REQUEST_CHILDREN | {"predict_grid", "predict_grid.device"}
+    want = REQUEST_CHILDREN | MODEL_SPANS | {"predict_grid", "predict_grid.device"}
     if n_samples:
         want.add("predict_grid.sample")
     assert set(recs) == want
-    for name in ("predict_grid.launch", "predict_grid.download", "predict_grid.device"):
+    for name in ("predict_grid.launch", "predict_grid.download", "predict_grid.device",
+                 *MODEL_SPANS):
         assert len(recs[name]) == 2 * n_chunks, name
+    device_ids = {s.id for s in recs["predict_grid.device"]}
+    assert all(s.parent in device_ids for name in MODEL_SPANS for s in recs[name])
     # every child names its request; the chunks' maps ran on the workers
     for root in roots:
         kids = [s for s in spans.records() if s.group == root.group and s is not root]
@@ -345,10 +350,13 @@ def test_train_epoch_records_one_group_a_step(monkeypatch):
     with spans.recording():
         state, losses = train_epoch(model, state, task, batch_size=2, step_fn=step)
     recs = _by_name(spans.records())
+    # the step's forward encodes its gridded contexts inside ``train.launch``
     assert len(losses) == 3 and {k: len(v) for k, v in recs.items()} == {
-        "train.batch": 3, "train.upload": 3, "train.launch": 3, "train.losses": 1}
+        "train.batch": 3, "train.upload": 3, "train.launch": 3, "train.losses": 1,
+        "model.encode_grid": 3}
     groups = [launch.group for launch in recs["train.launch"]]
     assert len(set(groups)) == 3
-    for g in groups:
+    for g, launch in zip(groups, recs["train.launch"]):
         mine = sorted((s.name, s.parent) for s in spans.records() if s.group == g)
-        assert mine == [("train.batch", None), ("train.launch", None), ("train.upload", None)]
+        assert mine == [("model.encode_grid", launch.id), ("train.batch", None),
+                        ("train.launch", None), ("train.upload", None)]
