@@ -39,11 +39,16 @@ maps on the device (``"float16"``/``"bfloat16"``) or quantises them there
 (``"int16"``/``"int8"``: per-(task, channel) ``lo``/``scale`` over the
 cells, dequantised on the host, at most ``scale/2`` off); ``upload_dtype``
 casts the task's value leaves on the host and upcasts them on the device.
+On a CUDA device a gridded request's host inputs (the task and the target
+grid's coordinates, aux and land index) reach the card through the
+``Predictor``'s pinned staging ring (``infer.staging``), before the
+forward is queued.
 
 While the perf recorder records (``perf.spans``), a gridded request is the
 span ``predict_grid`` and its children: ``.prepare`` (the target
 coordinates, the aux resampled onto the target grid, the sea mask),
-``.upload``, ``.launch`` (the host's enqueue of the forward),
+``.upload`` (the inputs' fill of the staging ring and the copies it
+issues), ``.launch`` (the host's enqueue of the forward),
 ``.download`` (issuing the copies to pinned memory), ``.wait`` (for the
 copies, or for the chunks' workers), ``.maps`` (on the land values:
 dequantise, ``post_transform``, unnormalise; then each map written once;
@@ -52,7 +57,11 @@ one per chunk on its worker thread, under the request; and one around the
 work) with ``.sample`` (the head's draws) inside it. Counters
 ``predict_grid.maps_values`` and ``predict_grid.maps_cells`` add, per map
 written, the land values computed on and the grid cells written: their
-ratio is the share of the grid the host computed on.
+ratio is the share of the grid the host computed on. Counters
+``predict_grid.upload_staged_bytes`` and ``predict_grid.upload_direct_bytes``
+add the bytes uploaded through the ring and by ``.to(device)`` (the CPU
+path), ``predict_grid.upload_slab_waits`` the fills that waited for a
+slab's copy to the card.
 """
 
 from __future__ import annotations
@@ -67,6 +76,7 @@ import torch
 from deepsensornz_tpu_torch.data.grid import Dataset, Field, interp_grid_at_points
 from deepsensornz_tpu_torch.data.processor import DataProcessor
 from deepsensornz_tpu_torch.infer.ar import ar_sample, sample_rows
+from deepsensornz_tpu_torch.infer.staging import StagingRing
 from deepsensornz_tpu_torch.parallel.mesh import gather_rows, rank_indices
 from deepsensornz_tpu_torch.perf import spans
 from deepsensornz_tpu_torch.task.batching import take
@@ -163,27 +173,51 @@ def _download(out: dict, device: torch.device) -> tuple[dict, Optional[torch.cud
     return host, event
 
 
-def _upload(task: TaskBatch, device: torch.device, upload_dtype: Optional[str]) -> TaskBatch:
-    """The grid path's task on ``device``: its target-side leaves, unused
-    when predicting on a grid, cut to one placeholder slot; with
-    ``upload_dtype`` the value leaves (grid and point ``y`` and ``mask``)
-    cast on the host and upcast to float32 on the device. Coordinates stay
-    float32."""
+def _upload(task: TaskBatch, target: tuple, device: torch.device,
+            upload_dtype: Optional[str], ring: Optional[StagingRing]) -> tuple:
+    """(task, target) of the grid path on ``device``: the task with its
+    target-side leaves, unused when predicting on a grid, cut to one
+    placeholder slot, and the target grid's numpy ``(xt1, xt2, aux, land)``
+    (``aux`` and ``land`` may be None) as tensors. With ``upload_dtype``
+    the value leaves (grid and point ``y`` and ``mask``) cross in that
+    dtype and are upcast to float32 on the device; coordinates stay
+    float32. With ``ring``, every host leaf goes through the pinned
+    staging ring (:mod:`~deepsensornz_tpu_torch.infer.staging`); the rest,
+    and every leaf without one, by ``.to(device)``, counted under
+    ``predict_grid.upload_direct_bytes``."""
     dt = _CASTS[upload_dtype] if upload_dtype else None
+    leaves = []  # (tensor, the dtype it crosses in, upcast on the device)
 
-    def up(t):
+    def put(t, value=False):
         if t is None:
             return None
-        if dt is None:
-            return t.to(device)
-        return t.to(dt).to(device).float()
+        leaves.append((t, dt if value and dt else t.dtype, value and dt is not None))
+        return len(leaves) - 1
 
-    return TaskBatch(
-        grids=tuple(GridContext(g.x1.to(device), g.x2.to(device), up(g.y), up(g.mask))
-                    for g in task.grids),
-        points=tuple(PointContext(p.x.to(device), up(p.y), up(p.mask)) for p in task.points),
-        xt=task.xt[:, :1].to(device), yt=None, yt_mask=task.yt_mask[:, :1].to(device),
-        yt_aux=None, x1g=task.x1g.to(device), x2g=task.x2g.to(device))
+    grids = [(put(g.x1), put(g.x2), put(g.y, True), put(g.mask, True)) for g in task.grids]
+    points = [(put(p.x), put(p.y, True), put(p.mask, True)) for p in task.points]
+    rest = [put(t) for t in (task.xt[:, :1], task.yt_mask[:, :1], task.x1g, task.x2g)]
+    grid = [put(None if a is None else torch.from_numpy(a)) for a in target]
+    got = [None] * len(leaves)
+    if ring is not None:
+        host = [i for i, (t, _, _) in enumerate(leaves) if t.device.type == "cpu"]
+        staged = ring.upload([leaves[i][:2] for i in host], device)
+        for i, t in zip(host, staged):
+            got[i] = t
+    for i, (t, d, _) in enumerate(leaves):
+        if got[i] is None:
+            got[i] = t.to(d).to(device)
+            spans.count("predict_grid.upload_direct_bytes",
+                        got[i].numel() * got[i].element_size())
+
+    def leaf(i):
+        return None if i is None else got[i].float() if leaves[i][2] else got[i]
+
+    xt, yt_mask, x1g, x2g = map(leaf, rest)
+    return (TaskBatch(grids=tuple(GridContext(*map(leaf, g)) for g in grids),
+                      points=tuple(PointContext(*map(leaf, p)) for p in points),
+                      xt=xt, yt=None, yt_mask=yt_mask, yt_aux=None, x1g=x1g, x2g=x2g),
+            tuple(map(leaf, grid)))
 
 
 def _gather_out(out: dict, mesh, batch: int) -> dict:
@@ -285,6 +319,7 @@ class Predictor:
         self.upload_dtype = upload_dtype
         self.batch_chunk = batch_chunk
         self.download_threads = int(download_threads)
+        self._ring = StagingRing()  # pinned at the first request on a CUDA device
 
     @property
     def device(self) -> torch.device:
@@ -454,10 +489,9 @@ class Predictor:
                 with spans.span("predict_grid.upload"):
                     if mesh is not None:
                         task = take(task, rank_indices(mesh, np.arange(B)))
-                    task = _upload(task, dev, self.upload_dtype)
+                    task, target = self._upload(task, (xt1, xt2, aux, land), dev)
                 with spans.span("predict_grid.launch"):
-                    out = self._device_forward(task, xt1, xt2, aux, n_samples, seed, outputs,
-                                               land, mesh, B)
+                    out = self._device_forward(task, target, n_samples, seed, outputs, mesh, B)
                 with spans.span("predict_grid.download"):
                     host, event = _download(out, dev)
             with spans.span("predict_grid.wait"):
@@ -488,14 +522,15 @@ class Predictor:
                     mine = [rank_indices(mesh, idx) for idx in chunks]
                     task = take(task, np.concatenate(mine))
                     chunks = [np.arange(i * len(m), (i + 1) * len(m)) for i, m in enumerate(mine)]
-                task = _upload(task, dev, self.upload_dtype)  # the whole batch, once
+                # the whole batch, once
+                task, target = self._upload(task, (xt1, xt2, aux, land), dev)
             futures = []
             with ThreadPoolExecutor(self.download_threads) as pool:
                 for off, idx in zip(offsets, chunks):
                     with spans.span("predict_grid.launch"):
                         out = self._device_forward(take(task, torch.from_numpy(idx).to(dev)),
-                                                   xt1, xt2, aux, n_samples, seed + off, outputs,
-                                                   land, mesh, chunk)
+                                                   target, n_samples, seed + off, outputs, mesh,
+                                                   chunk)
                     with spans.span("predict_grid.download"):
                         futures.append(pool.submit(fetch_into, *_download(out, dev), off,
                                                    request))
@@ -505,22 +540,30 @@ class Predictor:
                     pool.shutdown()
         return maps
 
-    def _device_forward(self, task, xt1, xt2, aux, n_samples, seed, outputs, land,
-                        mesh=None, batch: int = 0) -> dict:
+    def _upload(self, task, target, dev) -> tuple:
+        """:func:`_upload` through the Predictor's staging ring on a CUDA
+        device."""
+        ring = self._ring if dev.type == "cuda" else None
+        return _upload(task, target, dev, self.upload_dtype, ring)
+
+    def _device_forward(self, task, target, n_samples, seed, outputs, mesh=None,
+                        batch: int = 0) -> dict:
         """Forward, moments and samples of a task on the device, in the
         transfer format: (B, cells, dy) mean/std and (n, B, cells, dy)
         samples, over the ``land`` cells when given, else every cell;
         each a tensor, or a quantised dict (:func:`_quantize`). With
         ``mesh``, ``task`` is this rank's rows of a ``batch``-task batch:
         the samples are drawn as for the batch (:func:`sample_rows`) and
-        the result is the batch's, gathered from every rank."""
+        the result is the batch's, gathered from every rank. ``target``:
+        the target grid's ``(xt1, xt2, aux, land)`` on the device
+        (:func:`_upload`)."""
         dev = self.device
+        xt1, xt2, aux, land = target
         with spans.span("predict_grid.device", device=dev):
             lik = self.likelihood
             B, Ht, Wt = task.batch_size, len(xt1), len(xt2)
-            aux_d = None if aux is None else torch.from_numpy(aux).to(dev).expand(B, *aux.shape)
-            raw = self.model(task, target_grid=(torch.from_numpy(xt1).to(dev),
-                                                torch.from_numpy(xt2).to(dev), aux_d), mesh=mesh)
+            aux_b = None if aux is None else aux.expand(B, *aux.shape)
+            raw = self.model(task, target_grid=(xt1, xt2, aux_b), mesh=mesh)
             raw = lik.rescale_raw(raw, self.std_scale).reshape(B, Ht * Wt, -1)
             mean, std = lik.mean_std(raw)
             out = {k: v for k, v in (("mean", mean), ("std", std)) if k in outputs}
@@ -531,8 +574,7 @@ class Predictor:
                     out["samples"] = (lik.sample(raw, gen, n_samples) if mesh is None
                                       else sample_rows(lik, raw, gen, n_samples, mesh, batch))
             if land is not None:
-                idx = torch.from_numpy(land).to(dev)
-                out = {k: v.index_select(-2, idx) for k, v in out.items()}
+                out = {k: v.index_select(-2, land) for k, v in out.items()}
             out = {k: v.float() for k, v in out.items()}
             bits = _QUANT_BITS.get(self.transfer_dtype)
             if bits:

@@ -453,6 +453,102 @@ def test_int16_predict_grid_on_the_card(cuda, small_runs, monkeypatch):
         assert (err[land] <= np.broadcast_to(bound, ref.shape)[land]).all(), key
 
 
+def _host_leaf(kind, n):
+    """A host leaf of about ``n`` elements and the dtype it is sent in."""
+    g = torch.Generator().manual_seed(len(kind) + n)
+    if kind == "f32":
+        return torch.randn(n, generator=g), torch.float32
+    if kind == "int64":
+        return torch.randint(-2 ** 40, 2 ** 40, (n,), generator=g), torch.int64
+    if kind == "int32":
+        return torch.randint(-2 ** 30, 2 ** 30, (n,), generator=g, dtype=torch.int32), torch.int32
+    if kind in ("bf16", "f16"):
+        return torch.randn(n, generator=g) * 100, (torch.bfloat16 if kind == "bf16"
+                                                   else torch.float16)
+    if kind == "transposed":
+        return torch.randn(n // 64 + 1, 64, generator=g).t(), torch.float32
+    return torch.randn(1, 64, generator=g).expand(n // 64 + 1, 64), torch.float32  # stride 0
+
+
+@pytest.mark.parametrize("kind", ["f32", "int64", "int32", "bf16", "f16", "transposed",
+                                  "expanded"])
+def test_staged_upload_is_bitwise_to_device(cuda, kind):
+    """Through a ring of 2 slabs of 4 KiB (slabs refilled within the upload)
+    and through the default ring (a leaf of 3.5 slabs), with small leaves
+    packed around it: each device tensor is contiguous and bit for bit
+    ``t.to(dtype).to(device)``."""
+    from deepsensornz_tpu_torch.infer import staging
+
+    big = 7 * staging.SLAB_BYTES // 8  # 3.5 slabs of 4-byte elements
+    for ring, sizes in ((staging.StagingRing(slab_bytes=4096, n_slabs=2), (3, 5000, 17)),
+                        (staging.StagingRing(), (3, big, 17))):
+        leaves = [_host_leaf(kind, n) for n in sizes]
+        got = ring.upload(leaves, cuda)
+        torch.cuda.synchronize()
+        for g, (t, dt) in zip(got, leaves):
+            want = t.to(dt).to(cuda)
+            assert g.is_contiguous() and g.dtype == dt and g.shape == t.shape
+            assert torch.equal(g.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8))
+
+
+def test_back_to_back_staged_uploads_read_no_stale_slab(cuda):
+    """Two uploads queued back to back, each over more slabs than the ring
+    has, the first's sources overwritten as soon as it returned: each
+    device result holds its own values."""
+    from deepsensornz_tpu_torch.infer import staging
+
+    ring = staging.StagingRing(slab_bytes=1 << 20, n_slabs=2)
+    a = [torch.randn(5 << 18), torch.arange(7 << 16, dtype=torch.int64)]
+    b = [torch.randn(5 << 18), torch.arange(7 << 16, dtype=torch.int64) + 3]
+    want = [t.clone() for t in a]
+    got_a = ring.upload([(t, t.dtype) for t in a], cuda)
+    for t in a:
+        t.fill_(-7)
+    got_b = ring.upload([(t, t.dtype) for t in b], cuda)
+    torch.cuda.synchronize()
+    for got, w in zip(got_a + got_b, want + b):
+        assert torch.equal(got.cpu(), w)
+
+
+def test_staged_predict_grid_is_bitwise_the_to_device_upload(cuda, small_runs, monkeypatch):
+    """``ValidateERA``'s ``predict_grid`` on the card, whole and in chunks:
+    the mean and std maps with the inputs sent through the staging ring
+    equal, bit for bit, those sent by ``.to(device)``; the ring stages
+    exactly the bytes the direct upload counts; it holds its constant
+    pinned slabs (at most 256 MiB), whatever the request's size."""
+    from deepsensornz_tpu_torch.infer import predict as tpredict
+    from deepsensornz_tpu_torch.infer import staging
+    from deepsensornz_tpu_torch.perf import spans
+    from deepsensornz_tpu_torch.pipeline.validate import ValidateERA
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    run_dir, base, dem, stations = small_runs["gnp"]
+    fields = {"temperature": base}
+    staged_upload = tpredict.Predictor._upload
+    ring_bytes = staging.SLAB_BYTES * staging.N_SLABS
+    assert ring_bytes <= 256 << 20
+    for chunk, times in ((None, base.coords["time"][1:3]), (2, base.coords["time"][1:7])):
+        sel = stations[np.isin(stations["time"], np.asarray(times, stations["time"].dtype))]
+        era = ValidateERA(run_dir, dem, highres_factor=2, batch_chunk=chunk)
+        got = {}
+        for way in ("direct", "staged"):
+            monkeypatch.setattr(tpredict.Predictor, "_upload", staged_upload if way == "staged"
+                                else lambda self, task, target, dev: tpredict._upload(
+                                    task, target, dev, self.upload_dtype, None))
+            before = spans.counters("predict_grid.upload")
+            got[way] = era.predict(times, fields, station_df=sel)
+            after = spans.counters("predict_grid.upload")
+            got[way + " bytes"] = {k: after[k] - before.get(k, 0) for k in after
+                                   if after[k] != before.get(k, 0)}
+        sent = got["direct bytes"]["predict_grid.upload_direct_bytes"]
+        assert got["direct bytes"] == {"predict_grid.upload_direct_bytes": sent}
+        assert got["staged bytes"].pop("predict_grid.upload_staged_bytes") == sent
+        assert set(got["staged bytes"]) <= {"predict_grid.upload_slab_waits"}
+        for key in ("mean", "std"):
+            assert got["staged"][key].data.tobytes() == got["direct"][key].data.tobytes(), key
+        assert era.predictor._ring.nbytes == ring_bytes
+
+
 def test_encode_offgrid_at_the_al_exhaustive_shape(cuda):
     """B1 as greedy placement's exhaustive forward feeds it: 64 hypothetical
     tasks, each the 512 stations, 4 masked placement slots and one

@@ -44,6 +44,7 @@ from deepsensornz_tpu_torch.data.grid import Dataset, Field
 from deepsensornz_tpu_torch.data.grid import interp_grid_at_points as t_interp_grid_at_points
 from deepsensornz_tpu_torch.data.processor import DataProcessor
 from deepsensornz_tpu_torch.infer import predict as tpredict
+from deepsensornz_tpu_torch.infer import staging
 from deepsensornz_tpu_torch.infer.predict import Predictor
 from deepsensornz_tpu_torch.models import likelihoods as tlik
 from deepsensornz_tpu_torch.task.batching import take
@@ -459,6 +460,187 @@ def test_maps_count_the_land_values_and_the_cells(setting, sea_mask):
     assert values == (2 + 2) * B * land
     assert values / cells == (land / (Ht * Wt) if sea_mask else 1.0)
     assert sea_mask == (land < Ht * Wt)
+
+
+SLAB = 1024
+
+
+@pytest.mark.parametrize("sizes", [
+    [100],                    # smaller than a slab
+    [SLAB],                   # exactly one slab
+    [SLAB * 7 // 2],          # 3.5 slabs
+    [0],                      # nothing to send
+    [37] * 16,                # many small leaves packed into one slab
+    [0, 100, 0, SLAB, 3],     # empty leaves between, a full slab after a partial one
+    [SLAB - 1, 2, SLAB + 3, 700, 5 * SLAB],  # leaves straddling slab boundaries
+], ids=["small", "one-slab", "3.5-slabs", "zero", "packed", "mixed", "straddling"])
+def test_the_slab_plan_covers_every_byte_once_in_order(sizes):
+    """Each leaf's pieces run in order over its bytes, each byte once; each
+    leaf starts at an aligned offset of the stream; a slab's pieces do not
+    overlap and stay inside it; no slab is empty."""
+    slabs = staging.plan(sizes, SLAB, align=64)
+    seen = {i: [] for i in range(len(sizes))}
+    for j, pieces in enumerate(slabs):
+        assert pieces
+        ends = 0
+        for leaf, start, off, n in pieces:
+            assert 0 < n and ends <= off and off + n <= SLAB
+            ends = off + n
+            seen[leaf].append((start, j * SLAB + off, n))
+    for leaf, n in enumerate(sizes):
+        pieces = seen[leaf]
+        assert sum(p[2] for p in pieces) == n
+        if n:
+            assert pieces[0][0] == 0 and pieces[0][1] % 64 == 0
+        for (s0, p0, n0), (s1, p1, _) in zip(pieces, pieces[1:]):
+            assert s1 == s0 + n0 and p1 == p0 + n0  # in order, no gap in the stream
+    if sizes == [37] * 16:
+        assert len(slabs) == 1 and len(slabs[0]) == 16
+    if sizes == [SLAB * 7 // 2]:
+        assert [sum(p[3] for p in s) for s in slabs] == [SLAB] * 3 + [SLAB // 2]
+    with pytest.raises(ValueError, match="multiple of align"):
+        staging.plan(sizes, SLAB + 1, align=64)
+
+
+def _leaf(kind):
+    g = torch.Generator().manual_seed(3)
+    if kind == "f32":
+        return torch.randn(3 * SLAB // 4 + 5, generator=g), torch.float32
+    if kind == "int64":
+        return torch.randint(-2 ** 40, 2 ** 40, (400,), generator=g), torch.int64
+    if kind == "int32":
+        t = torch.randint(-2 ** 30, 2 ** 30, (5, 97), generator=g, dtype=torch.int32)
+        return t, torch.int32
+    if kind in ("bf16", "f16"):
+        return (torch.randn(2, 600, generator=g) * 100,
+                torch.bfloat16 if kind == "bf16" else torch.float16)
+    if kind == "transposed":
+        return torch.randn(40, 30, generator=g).t(), torch.float32
+    if kind == "expanded":
+        return torch.randn(1, 7, generator=g).expand(90, 7), torch.float32
+    if kind == "bf16-leaf":  # no numpy dtype: its bytes are copied
+        return torch.randn(700, generator=g).to(torch.bfloat16), torch.bfloat16
+    if kind == "bool":
+        return torch.rand(333, generator=g) > 0.5, torch.bool
+    if kind == "empty":
+        return torch.zeros(0, 4), torch.float32
+    return torch.tensor(2.5), torch.float32  # a 0-d leaf
+
+
+LEAF_KINDS = ["f32", "int64", "int32", "bf16", "f16", "bf16-leaf", "bool", "transposed",
+              "expanded", "empty", "0-d"]
+
+
+@pytest.mark.parametrize("kind", LEAF_KINDS)
+def test_the_ring_gives_each_leaf_as_to_does(kind):
+    """Through a ring of 3 small slabs (on the CPU: plain host slabs), each
+    leaf, alone and among others, comes out contiguous, of its dtype and
+    shape, bit for bit what ``t.to(dtype)`` gives; the bytes sent are
+    counted as staged."""
+    ring = staging.StagingRing(slab_bytes=SLAB, n_slabs=3)
+    t, dt = _leaf(kind)
+    others = [_leaf(k) for k in LEAF_KINDS]
+    before = spans.counters("predict_grid.")
+    alone, *mixed = ring.upload([(t, dt)], torch.device("cpu")) + ring.upload(
+        others + [(t, dt)], torch.device("cpu"))
+    after = spans.counters("predict_grid.")
+    for got, (src, d) in [(alone, (t, dt))] + list(zip(mixed, others + [(t, dt)])):
+        want = src.to(d)
+        assert got.is_contiguous() and got.dtype == d and got.shape == src.shape
+        assert torch.equal(got.reshape(-1).view(torch.uint8) if got.numel() else got,
+                           want.reshape(-1).view(torch.uint8) if want.numel() else want)
+    sent = sum(o.numel() * o.element_size() for o in [alone] + mixed)
+    assert (after.get("predict_grid.upload_staged_bytes", 0)
+            - before.get("predict_grid.upload_staged_bytes", 0)) == sent
+    assert ring.nbytes == 3 * SLAB
+    assert after.get("predict_grid.upload_slab_waits", 0) == before.get(
+        "predict_grid.upload_slab_waits", 0)  # no copy to wait for on the CPU
+
+
+def test_back_to_back_uploads_through_the_ring_get_their_own_values():
+    """Two uploads of different values, each over more slabs than the ring
+    has, and the first's sources overwritten after it returned: each gets
+    its own values, so no slab is read stale."""
+    ring = staging.StagingRing(slab_bytes=SLAB, n_slabs=2)
+    a = [torch.randn(5 * SLAB // 4 + 3), torch.arange(300.0)]
+    b = [torch.randn(5 * SLAB // 4 + 3), torch.arange(300.0) + 1]
+    want = [t.clone() for t in a]
+    got_a = ring.upload([(t, t.dtype) for t in a], torch.device("cpu"))
+    for t in a:
+        t.fill_(-7.0)
+    got_b = ring.upload([(t, t.dtype) for t in b], torch.device("cpu"))
+    for got, w in zip(got_a + got_b, want + b):
+        assert torch.equal(got, w)
+    with pytest.raises(ValueError, match="at least 2 slabs"):
+        staging.StagingRing(n_slabs=1)
+
+
+def _upload_bytes(task, dem, aux_channels, land, upload_dtype=None) -> int:
+    """The bytes of a gridded request's upload: the task's leaves (targets
+    cut to one slot, value leaves in ``upload_dtype``) and the target
+    grid's coordinates, aux and land index."""
+    value = {None: 4, "bfloat16": 2, "float16": 2}[upload_dtype]
+    n = sum(4 * (g.x1.numel() + g.x2.numel()) + value * (g.y.numel() + (
+        0 if g.mask is None else g.mask.numel())) for g in task.grids)
+    n += sum(4 * p.x.numel() + value * (p.y.numel() + p.mask.numel()) for p in task.points)
+    B, (Ht, Wt) = task.batch_size, dem.shape
+    n += 4 * (B * 2 + B + task.x1g.numel() + task.x2g.numel() + Ht + Wt + Ht * Wt * aux_channels)
+    return n + 8 * land
+
+
+def test_the_cpu_upload_is_as_before(setting):
+    """On the CPU ``predict_grid`` uploads by ``.to(device)``: the uploaded
+    leaves are the inputs' own storage, every byte is counted as direct,
+    none staged, and the ring holds no memory."""
+    s = setting
+    pred = Predictor(s["model"], s["dp"], s["st_col"])
+    task = s["task"]
+    target = (np.zeros(3, np.float32), np.zeros(4, np.float32), None, np.arange(5))
+    up, (xt1, _, aux, land) = tpredict._upload(task, target, torch.device("cpu"), None, None)
+    assert up.grids[0].y.data_ptr() == task.grids[0].y.data_ptr()
+    assert up.points[0].mask.data_ptr() == task.points[0].mask.data_ptr()
+    assert xt1.data_ptr() == target[0].ctypes.data and aux is None
+    assert land.data_ptr() == target[3].ctypes.data
+    before = spans.counters("predict_grid.upload")
+    pred.predict_grid(task, s["dem"], aux_at_targets=s["aux"])
+    after = spans.counters("predict_grid.upload")
+    moved = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    n_land = int((~np.isnan(s["dem"].data)).sum())
+    assert moved == {"predict_grid.upload_direct_bytes": _upload_bytes(
+        task, s["dem"], task.yt_aux.shape[-1], n_land)}
+    assert pred._ring.nbytes == 0
+
+
+@pytest.mark.parametrize("chunk", [None, 2], ids=["whole", "chunk2"])
+@pytest.mark.parametrize("upload_dtype", [None, "bfloat16", "float16"])
+def test_predict_grid_through_the_ring_is_bitwise_the_direct_upload(setting, monkeypatch,
+                                                                   chunk, upload_dtype):
+    """``predict_grid`` with its inputs sent through a ring of small slabs
+    (forced on the CPU) gives the maps of the direct upload bit for bit,
+    and stages exactly the bytes the direct upload counts."""
+    s = setting
+    task = take(s["task"], [0, 1, 0, 1, 0])
+    direct = tpredict._upload
+
+    def run(ring):
+        monkeypatch.setattr(tpredict, "_upload",
+                            lambda t, tg, dev, dt, _: direct(t, tg, dev, dt, ring))
+        pred = Predictor(s["model"], s["dp"], s["st_col"], batch_chunk=chunk,
+                         upload_dtype=upload_dtype)
+        before = spans.counters("predict_grid.upload")
+        out = pred.predict_grid(task, s["dem"], aux_at_targets=s["aux"])
+        after = spans.counters("predict_grid.upload")
+        return out, {k: after[k] - before.get(k, 0) for k in after
+                     if after[k] != before.get(k, 0)}
+
+    want, direct_count = run(None)
+    got, staged_count = run(staging.StagingRing(slab_bytes=SLAB, n_slabs=3))
+    n_land = int((~np.isnan(s["dem"].data)).sum())
+    sent = _upload_bytes(task, s["dem"], task.yt_aux.shape[-1], n_land, upload_dtype)
+    assert direct_count == {"predict_grid.upload_direct_bytes": sent}
+    assert staged_count == {"predict_grid.upload_staged_bytes": sent}
+    for key in want:
+        assert got[key].data.tobytes() == want[key].data.tobytes(), key
 
 
 def test_ar_sample_grid_fields(setting):
