@@ -7,14 +7,15 @@ Counterpart of ``Predictor`` in ``deepsensornz_tpu/infer/predict.py``:
   model's device, rescales the predictive spread by ``std_scale``, takes
   the head's mean/std and, with ``n_samples > 0``, joint samples over the
   whole grid; gathers the land cells on the device, and returns them
-  unnormalised as ``Field``s with NaN sea cells. ``batch_chunk`` splits a
-  long batch into fixed-size chunks: every chunk is launched first, and
-  ``download_threads`` workers copy each chunk's result and write its rows
-  of the maps while the later chunks run (unchunked, as many workers write
-  a map each). The host's maps are computed on
-  the land values alone (dequantise, ``post_transform``, which must be
-  elementwise, and unnormalise), and each ``Field``'s array is written
-  once, by one gather that puts NaN on the sea cells.
+  unnormalised as ``Field``s with NaN sea cells. A request is a list of
+  chunks: the whole batch, or fixed-size chunks of ``batch_chunk`` tasks
+  when the batch is longer. Every chunk is launched first; the host then
+  waits for each chunk's copy and writes its rows of the maps, a map a job
+  on ``download_threads`` workers, while the later chunks run. The host's
+  maps are computed on the land values alone (dequantise,
+  ``post_transform``, which must be elementwise, and unnormalise), and
+  each ``Field``'s array is written once, by one gather that puts NaN on
+  the sea cells.
 - ``predict_points`` gives mean/std (and ``p_wet`` for bernoulli-gamma) at
   the task's off-grid targets.
 - ``ar_sample_grid`` draws coherent AR samples on a subsampled grid and
@@ -49,12 +50,12 @@ span ``predict_grid`` and its children: ``.prepare`` (the target
 coordinates, the aux resampled onto the target grid, the sea mask),
 ``.upload`` (the inputs' fill of the staging ring and the copies it
 issues), ``.launch`` (the host's enqueue of the forward),
-``.download`` (issuing the copies to pinned memory), ``.wait`` (for the
-copies, or for the chunks' workers), ``.maps`` (on the land values:
-dequantise, ``post_transform``, unnormalise; then each map written once;
-one per chunk on its worker thread, under the request; and one around the
-``Field``s); and the device spans ``.device`` (all of the forward's device
-work) with ``.sample`` (the head's draws) inside it. Counters
+``.download`` (issuing the copies to pinned memory), ``.wait`` (for a
+chunk's copies), ``.maps`` (on the land values: dequantise,
+``post_transform``, unnormalise; then each map written once, on the
+request's workers; one per chunk, and one around the ``Field``s); and the
+device spans ``.device`` (all of the forward's device work) with
+``.sample`` (the head's draws) inside it. Counters
 ``predict_grid.maps_values`` and ``predict_grid.maps_cells`` add, per map
 written, the land values computed on and the grid cells written: their
 ratio is the share of the grid the host computed on. Counters
@@ -276,14 +277,14 @@ class Predictor:
 
     ``batch_chunk``: split gridded predictions into chunks of this many
     tasks (the tail padded by repeating its last task, the pad trimmed), so
-    device memory is bounded by the chunk, not the batch. The batch is
-    uploaded once and every chunk launched before the first result is
-    read; ``download_threads`` workers wait for each chunk's copy to the
-    host and write its rows of the maps, so the copies overlap the chunks
-    still running. A request in one piece has its maps written by as many
-    workers, a map each. Mean and std do not depend on the
-    chunking or the number of threads; joint samples draw per-chunk seeds
-    (``seed + chunk offset``) and depend on the chunking.
+    device memory is bounded by the chunk, not the batch; a batch of at
+    most ``batch_chunk`` tasks is one chunk. The batch is uploaded once and
+    every chunk launched before the first result is read; the host then
+    waits for each chunk's copy in turn and writes its rows of the maps on
+    ``download_threads`` workers, a map each, while the later chunks still
+    run. Mean and std do not depend on the chunking or the number of
+    threads; joint samples draw per-chunk seeds (``seed + chunk offset``)
+    and depend on the chunking.
 
     ``transfer_dtype``: ``None`` (float32), ``"float16"``/``"bfloat16"``
     (cast on the device, upcast on the host) or ``"int16"``/``"int8"``
@@ -435,13 +436,13 @@ class Predictor:
         return Prediction(fields)
 
     def _write_maps(self, maps, host, off, n, inv, unnormalise, post_transform,
-                    pool: Optional[ThreadPoolExecutor] = None) -> None:
+                    pool: ThreadPoolExecutor) -> None:
         """Rows ``off:off + n`` of every map in ``maps`` from the first ``n``
         tasks of a downloaded ``host`` tree, computed on its compact values:
         dequantised (float32), ``post_transform``-ed, then each channel
         unnormalised (float64, rounded once to float32) and gathered into
         its map (:func:`_gather_into`), one map (a key, channel and sample)
-        a job on ``pool``'s workers when given."""
+        a job on ``pool``'s workers."""
         vals = {}
         for k, v in host.items():
             a = _dequantize_host(v)
@@ -467,53 +468,29 @@ class Predictor:
                              for i in range(len(a))]
                 else:
                     jobs.append((dst[off:off + n], a[..., c], inv, *affine))
-        list((pool.map if pool else map)(lambda job: _gather_into(*job), jobs))
+        list(pool.map(lambda job: _gather_into(*job), jobs))
 
     def _forward_chunked(self, task, xt1, xt2, aux, n_samples, seed, outputs, land, inv,
                          unnormalise, post_transform, mesh=None) -> dict:
         """The request's finished float32 maps, one list of ``dim_yt``
         channels a key: mean/std (B, Ht, Wt) and samples (n, B, Ht, Wt),
-        NaN outside ``land`` when given (:meth:`_write_maps`). One forward
-        of the whole batch, or chunk by chunk when ``batch_chunk`` is set
-        and exceeded, each chunk's rows written on a worker; with ``mesh``,
-        each forward over the data ranks' rows, gathered before the
-        download."""
+        NaN outside ``land`` when given (:meth:`_write_maps`). The batch is
+        one chunk, or chunks of ``batch_chunk`` when it is longer (the tail
+        padded with the batch's last task). The inputs are uploaded once;
+        every chunk is launched (with ``mesh``, on the data ranks' rows,
+        gathered before the download) and its download started before the
+        host waits for the first; the host then writes each chunk's rows
+        while the later chunks run."""
         dev = self.device
-        B, chunk = task.batch_size, self.batch_chunk
+        B = task.batch_size
+        size = min(self.batch_chunk or B, B)
         Ht, Wt, dy = len(xt1), len(xt2), self.model.cfg.dim_yt
         maps = {k: [np.empty((B, Ht, Wt), np.float32) for _ in range(dy)] for k in outputs}
         if n_samples > 0:
             maps["samples"] = [np.empty((n_samples, B, Ht, Wt), np.float32) for _ in range(dy)]
-        if not chunk or B <= chunk:
-            with torch.inference_mode():
-                with spans.span("predict_grid.upload"):
-                    if mesh is not None:
-                        task = take(task, rank_indices(mesh, np.arange(B)))
-                    task, target = self._upload(task, (xt1, xt2, aux, land), dev)
-                with spans.span("predict_grid.launch"):
-                    out = self._device_forward(task, target, n_samples, seed, outputs, mesh, B)
-                with spans.span("predict_grid.download"):
-                    host, event = _download(out, dev)
-            with spans.span("predict_grid.wait"):
-                if event is not None:
-                    event.synchronize()
-            with spans.span("predict_grid.maps"), ThreadPoolExecutor(self.download_threads) as pool:
-                self._write_maps(maps, host, 0, B, inv, unnormalise, post_transform, pool)
-            return maps
-
-        def fetch_into(host, event, off, request):
-            if event is not None:
-                event.synchronize()
-            with spans.span("predict_grid.maps", parent=request):
-                self._write_maps(maps, host, off, min(off + chunk, B) - off, inv, unnormalise,
-                                 post_transform)
-
-        offsets = range(0, B, chunk)
-        chunks = []  # each chunk's task indices, the tail padded with its last task
-        for off in offsets:
-            idx = np.arange(off, min(off + chunk, B))
-            chunks.append(np.concatenate([idx, np.full(chunk - len(idx), idx[-1], idx.dtype)]))
-        request = spans.current()
+        offsets = range(0, B, size)
+        chunks = [np.minimum(np.arange(off, off + size), B - 1) for off in offsets]
+        pending = []  # (offset, host tree, event) of each chunk
         with torch.inference_mode():
             with spans.span("predict_grid.upload"):
                 if mesh is not None:
@@ -522,29 +499,24 @@ class Predictor:
                     mine = [rank_indices(mesh, idx) for idx in chunks]
                     task = take(task, np.concatenate(mine))
                     chunks = [np.arange(i * len(m), (i + 1) * len(m)) for i, m in enumerate(mine)]
-                # the whole batch, once
-                task, target = self._upload(task, (xt1, xt2, aux, land), dev)
-            futures = []
-            with ThreadPoolExecutor(self.download_threads) as pool:
-                for off, idx in zip(offsets, chunks):
-                    with spans.span("predict_grid.launch"):
-                        out = self._device_forward(take(task, torch.from_numpy(idx).to(dev)),
-                                                   target, n_samples, seed + off, outputs, mesh,
-                                                   chunk)
-                    with spans.span("predict_grid.download"):
-                        futures.append(pool.submit(fetch_into, *_download(out, dev), off,
-                                                   request))
+                ring = self._ring if dev.type == "cuda" else None
+                task, target = _upload(task, (xt1, xt2, aux, land), dev, self.upload_dtype, ring)
+            for off, idx in zip(offsets, chunks):
+                with spans.span("predict_grid.launch"):
+                    rows = task if len(chunks) == 1 else take(task, torch.from_numpy(idx).to(dev))
+                    out = self._device_forward(rows, target, n_samples, seed + off, outputs, mesh,
+                                               size)
+                with spans.span("predict_grid.download"):
+                    pending.append((off, *_download(out, dev)))
+        with ThreadPoolExecutor(self.download_threads) as pool:
+            for off, host, event in pending:
                 with spans.span("predict_grid.wait"):
-                    for f in futures:
-                        f.result()
-                    pool.shutdown()
+                    if event is not None:
+                        event.synchronize()
+                with spans.span("predict_grid.maps"):
+                    self._write_maps(maps, host, off, min(size, B - off), inv, unnormalise,
+                                     post_transform, pool)
         return maps
-
-    def _upload(self, task, target, dev) -> tuple:
-        """:func:`_upload` through the Predictor's staging ring on a CUDA
-        device."""
-        ring = self._ring if dev.type == "cuda" else None
-        return _upload(task, target, dev, self.upload_dtype, ring)
 
     def _device_forward(self, task, target, n_samples, seed, outputs, mesh=None,
                         batch: int = 0) -> dict:

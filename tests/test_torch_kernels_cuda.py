@@ -524,7 +524,7 @@ def test_staged_predict_grid_is_bitwise_the_to_device_upload(cuda, small_runs, m
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     run_dir, base, dem, stations = small_runs["gnp"]
     fields = {"temperature": base}
-    staged_upload = tpredict.Predictor._upload
+    staged_upload = tpredict._upload
     ring_bytes = staging.SLAB_BYTES * staging.N_SLABS
     assert ring_bytes <= 256 << 20
     for chunk, times in ((None, base.coords["time"][1:3]), (2, base.coords["time"][1:7])):
@@ -532,9 +532,9 @@ def test_staged_predict_grid_is_bitwise_the_to_device_upload(cuda, small_runs, m
         era = ValidateERA(run_dir, dem, highres_factor=2, batch_chunk=chunk)
         got = {}
         for way in ("direct", "staged"):
-            monkeypatch.setattr(tpredict.Predictor, "_upload", staged_upload if way == "staged"
-                                else lambda self, task, target, dev: tpredict._upload(
-                                    task, target, dev, self.upload_dtype, None))
+            monkeypatch.setattr(tpredict, "_upload", staged_upload if way == "staged"
+                                else lambda task, target, dev, dt, _: staged_upload(
+                                    task, target, dev, dt, None))
             before = spans.counters("predict_grid.upload")
             got[way] = era.predict(times, fields, station_df=sel)
             after = spans.counters("predict_grid.upload")

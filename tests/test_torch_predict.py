@@ -177,9 +177,9 @@ def test_unnormalisation_is_the_target_affine(setting):
     (dict(transfer_dtype="float16"), {}), (dict(download_threads=2), {}),
     (dict(upload_dtype="float16"), {}), (dict(transfer_dtype="int8"), {}),
 ])
-def test_unported_options_raise(setting, kw, call_kw):
-    """The compressed transfer modes and threaded downloads, once not
-    ported, are accepted and match the JAX ``Predictor``'s same mode, in
+def test_transfer_options_match_jax(setting, kw, call_kw):
+    """The compressed transfer modes and threaded downloads match the JAX
+    ``Predictor``'s same mode, in
     normalised units: float16 to one unit in its last place (2^-10 of the
     value), int8 to one step of each (task, channel) map (its range / 255),
     each on top of the float32 tolerance (the two sides' float32 maps may
@@ -329,6 +329,34 @@ def test_chunked_predict_matches_unchunked(setting):
                                    rtol=1e-5, atol=1e-5 * float(np.nanmax(np.abs(one["mean"].data))))
     with pytest.raises(ValueError):
         Predictor(s["model"], s["dp"], s["st_col"], batch_chunk=0)
+
+
+@pytest.mark.parametrize("chunk", [None, 5, 8])
+def test_a_batch_of_at_most_batch_chunk_is_one_chunk(setting, monkeypatch, chunk):
+    """Five tasks with ``batch_chunk`` None, 5 or 8 are one chunk: one
+    forward (one ``predict_grid.launch`` span), no ``take`` of the uploaded
+    batch, and int16 maps and samples bit for bit those of the request
+    without ``batch_chunk``, on two download threads."""
+    s = setting
+    task = take(s["task"], [0, 1, 0, 1, 0])
+    kw = dict(aux_at_targets=s["aux"], n_samples=2, seed=3)
+    want = Predictor(s["model"], s["dp"], s["st_col"], transfer_dtype="int16",
+                     download_threads=2).predict_grid(task, s["dem"], **kw)
+    takes = []
+    monkeypatch.setattr(tpredict, "take", lambda *a: takes.append(a) or take(*a))
+    pred = Predictor(s["model"], s["dp"], s["st_col"], transfer_dtype="int16",
+                     batch_chunk=chunk, download_threads=2)
+    spans.clear()
+    try:
+        with spans.recording():
+            got = pred.predict_grid(task, s["dem"], **kw)
+        launches = [r for r in spans.records() if r.name == "predict_grid.launch"]
+    finally:
+        spans.clear()
+    assert len(launches) == 1 and takes == []
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key].data.tobytes() == want[key].data.tobytes(), key
 
 
 @pytest.fixture(scope="module")

@@ -323,15 +323,15 @@ def test_predict_grid_records_its_spans(tiny, chunk, threads, n_samples, monkeyp
         assert len(recs[name]) == 2 * n_chunks, name
     device_ids = {s.id for s in recs["predict_grid.device"]}
     assert all(s.parent in device_ids for name in MODEL_SPANS for s in recs[name])
-    # every child names its request; the chunks' maps ran on the workers
+    # every child names its request; each chunk's maps, and the Fields,
+    # are written under the request on its own thread
     for root in roots:
         kids = [s for s in spans.records() if s.group == root.group and s is not root]
         assert {s.name for s in kids} == want - {"predict_grid"}
         assert all(s.parent is not None for s in kids)
         maps = [s for s in kids if s.name == "predict_grid.maps"]
-        if chunk is not None:
-            assert len(maps) == n_chunks + 1
-            assert len({s.thread for s in maps if s.thread != root.thread}) >= 1
+        assert len(maps) == n_chunks + 1
+        assert all(s.parent == root.id and s.thread == root.thread for s in maps)
     snap = spans.snapshot()
     # the children account for the request's wall time
     assert snap["predict_grid"]["self_s"] <= 0.05 * snap["predict_grid"]["total_s"], snap
