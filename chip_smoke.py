@@ -24,7 +24,15 @@ Phases (one line each; the first failure exits non-zero):
              least time the card could take for it (the larger of FLOPs at
              the TF32 tensor-core peak and bytes at the HBM rate); for the
              decode also the one PyTorch call that computes the same
-             function (``einsum`` on the same f in f32, TF32 off).
+             function (``einsum`` on the same f in f32, TF32 off). Then
+             the decode onto a list of cells, as a request without samples
+             runs it (the block tiles holding a listed cell, then the
+             gather), against the plain decode's rows there: the U-Net's
+             output onto the 278x260 DEM's land, and 24x608x608x64 bf16
+             features onto the benchmark's WRF land (1390x1300, 15.8 %);
+             each kernel's device time and the bound by f read once and
+             the cells' outputs written once (in the ``kernels`` line under
+             ``decode_grid``'s ``on_cells``).
 4. serve   - the flagship ConvNP (U-Net (64,)*4, k=5, gnp rank 64, density
              500, bf16 U-Net, random weights from a seed) behind
              ``Predictor.predict_grid``: three requests of 24 tasks; checks
@@ -1496,8 +1504,9 @@ def al_reference(dev) -> None:
 
 def kernel_checks(dev, model, dp, dem, task0) -> dict:
     """Phase 3: each kernel against its plain version at the main path's
-    shapes (and B1 at the AR feedback shapes); returns per-kernel results
-    at the main shape, with the largest error over its shapes."""
+    shapes (B1 also at the AR feedback shapes, B2 also onto the land cells);
+    returns per-kernel results at the main shape, with the largest error
+    over its shapes."""
     import torch
 
     from deepsensornz_tpu_torch.infer import ar
@@ -1579,8 +1588,87 @@ def kernel_checks(dev, model, dp, dem, task0) -> dict:
             if not entry:  # the first case of each kernel is its main-path shape
                 entry.update({"ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": library_ms})
             entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), cmp["max_abs_err"])
-        del f, f4, got, task, task4, pe, pg
+        del f4, got, task4, pe, pg
+        # the land path of a request without samples: B2 on the block tiles
+        # that hold the map's land, then the gather, at the flagship DEM's
+        # land and at the benchmark's WRF land (1390x1300, its 608^2 grid)
+        land = np.flatnonzero(~np.isnan(dem.data.ravel()))
+        on_cells = [decode_cells_check("flagship", task.x1g, task.x2g, f, xt1, xt2, ls_dec, land)]
+        del f, task
+        wrf = wrf_land_domain()
+        wx1g, wx2g, wxt1, wxt2 = (torch.from_numpy(a).to(dev)
+                                  for a in (wrf.x1g, wrf.x2g, wrf.xt1, wrf.xt2))
+        g = torch.Generator(device=dev).manual_seed(0)
+        wf = torch.randn(B, len(wrf.x1g), len(wrf.x2g), C, device=dev,
+                         generator=g).to(torch.bfloat16)
+        on_cells.append(decode_cells_check("wrf", wx1g, wx2g, wf, wxt1, wxt2, ls_dec,
+                                           np.flatnonzero(wrf.land.ravel())))
+        del wf
+        torch.cuda.empty_cache()
+        results["decode_grid"]["on_cells"] = on_cells
+        results["decode_grid"]["max_abs_err"] = max(
+            results["decode_grid"]["max_abs_err"], *(r["max_abs_err"] for r in on_cells))
     return results
+
+
+def wrf_land_domain():
+    """The benchmark's WRF domain (``benchmark/inputs.py``, traffic
+    ``wrf-cycle24`` at density 500): its 1390x1300 target grid, its 608^2
+    internal grid and its land, the cells near a registry site."""
+    from benchmark import inputs
+
+    traffic = json.loads((Path(__file__).resolve().parent / "benchmark" / "traffic"
+                          / "wrf-cycle24.json").read_text())
+    return inputs.domain(traffic, {"internal_density": 500}, 0)
+
+
+def decode_cells_check(label, x1g, x2g, f, xt1, xt2, ls, land) -> dict:
+    """B2 onto the list of target cells ``land`` (the live block tiles,
+    then the gather) against the plain decode's rows at the same cells:
+    the error, CUDA-event times of the wrapper and of the plain version,
+    each of the two kernels' device time, and the bound by the work the
+    cells need: f read once and their outputs written once, the operations
+    the whole grid's scaled to the cells' share."""
+    import torch
+
+    from deepsensornz_tpu_torch.ops import setconv, setconv_cuda
+
+    B, H, W, C = f.shape
+    Ht, Wt = xt1.shape[0], xt2.shape[0]
+    cells = setconv_cuda.target_cells(land, Ht, Wt, f.device)
+    args = (x1g, x2g, f, xt1, xt2, ls)
+
+    def kernel():
+        return setconv_cuda.decode_grid(*args, cells=cells)
+
+    def plain():
+        return setconv.setconv_decode_grid(*args, cells=cells.index)
+
+    got = kernel()
+    cmp = compare(got, plain(), RTOL, ATOL_FRAC)
+    del got
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    torch.cuda.empty_cache()
+    decode_ms = kernel_device_ms(kernel, "decode_grid_kernel")
+    gather_ms = kernel_device_ms(kernel, "channels_last_kernel")
+    flops = decode_work(setconv, *args)[0] * len(land) / (Ht * Wt)
+    nbytes = f.numel() * f.element_size() + 4 * B * len(land) * C + 4 * (H + W + Ht + Wt)
+    bnd = card_bound(flops, nbytes)
+    t = setconv_cuda.decode_tiling(Ht, W, Wt)
+    live = int(cells.tiles.shape[0])
+    say("kernels", f"decode_grid on cells ({label}) {tuple(f.shape)} {f.dtype} onto "
+        f"{len(land)} of {Ht}x{Wt} cells, {live} of {t['nTT'] * t['nUT']} block tiles live: "
+        f"max_abs_err {cmp['max_abs_err']:.3e} (rtol {RTOL}, atol {cmp['atol']:.3e}) wrapper "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events); decode_grid_kernel "
+        f"{decode_ms:.3f} ms, channels_last_kernel {gather_ms:.3f} ms (profiler); needed "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: bound {bnd['bound_ms']:.4f} ms by "
+        f"{bnd['bound_by']}")
+    if not cmp["ok"]:
+        raise AssertionError(f"decode_grid on cells ({label}) disagrees with its plain version")
+    return {"grid": label, "cells": int(len(land)), "tiles_live": live,
+            "tiles": t["nTT"] * t["nUT"], "ms": ms, "plain_ms": plain_ms,
+            "decode_kernel_ms": decode_ms, "gather_kernel_ms": gather_ms, **bnd,
+            "max_abs_err": cmp["max_abs_err"]}
 
 
 def serve_reference(dev, dp, target_var) -> None:

@@ -11,9 +11,9 @@
 // fragment order (below); both contractions and the normalisation are this
 // kernel's body.
 //
-// Design (one block per 64 target rows x one block of up to 11 target-column
-// tiles of 8 x one (task, channel) plane; 4 consumer warps = one warpgroup
-// of 16 target rows each, plus 1 producer warp):
+// Design (one block per block tile, 64 target rows x one block of up to 11
+// target-column tiles of 8, x one (task, channel) plane; 4 consumer warps =
+// one warpgroup of 16 target rows each, plus 1 producer warp):
 //   - Stage 1, T[t, w] = sum_h A[t, h] f[h, w] for a chunk of 64 source
 //     columns, on the tensor cores. A arrives split in three bf16 parts
 //     (hi, mid, lo: 24 mantissa bits). For bf16 f (the U-Net's bf16 output,
@@ -52,9 +52,23 @@
 //     contiguous rows; a second small kernel transposes (B, C, Ht*Wt) to the
 //     (B, Ht, Wt, C) the head reads, through 32x32 shared-memory tiles, so
 //     neither kernel scatters 4-byte stores at a stride of C.
+//   - Live tiles: a caller that needs only a list of target cells (the land
+//     cells of a served map) passes them with the block tiles that hold at
+//     least one of them (the wrapper derives the list on the host). The grid
+//     is then those live tiles x planes, so a tile without a listed cell
+//     costs no launch; a live block runs exactly as in the full launch
+//     (the same stages, skip ranges and sums), so each listed cell's value
+//     is bitwise the full launch's. Each block writes its 64 x (tiles x 8)
+//     tile into a compact channel-first slot, (b, c, live tile, 64, 88), and
+//     the second kernel, in place of the transpose, gathers the listed cells
+//     from the slots into (B, cells, C): a cell's slot is found by binary
+//     search of the ascending live list. On the WRF grid with NZ's land
+//     (15.8 % of the cells) 112 of 330 tiles are live.
 //   - Blocks that share a (task, channel) plane are adjacent in blockIdx.x
 //     and run together, so the plane is read from device memory once.
-// What bounds it on the H100 (measured, PERF.md): not the L2-to-SM bytes
+// What bounds it on the H100: a launch's time follows its count of live
+// tiles (a live tile costs what it costs in the full launch, PERF.md); per
+// tile, measured on the full grid, not the L2-to-SM bytes
 // (keeping A resident cut them 2.4x and changed nothing), not stage 1's
 // tensor issue (wgmma in place of mma.sync changed nothing), not occupancy
 // (two blocks per SM changed nothing). It issues ~900 GFLOP of split
@@ -105,8 +119,9 @@ struct DecodeArgs {
   const float* sA;      // (Ht) or null: no normalisation
   const float* sB;      // (Wt)
   const int* ranges;    // klo[nTT] khi[nTT] wlo[nUT] whi[nUT]
-  float* out;           // (B*C, Ht, Wt)
-  int Ht, Wt, nTT, nUT, NTg, tiles_per_ut;
+  const int* live;      // the live block tiles (ut * nTT + tt), ascending; null: every tile
+  float* out;           // (B*C, Ht, Wt); with live, (B*C, n_live, kRows, tiles_per_ut * 8)
+  int Ht, Wt, nTT, nUT, NTg, tiles_per_ut, n_live;
 };
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -232,8 +247,9 @@ decode_grid_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constan
   uint64_t* bfull = afull + 2;
   uint64_t* bempty = afull + 3;
 
-  const int tt = blockIdx.x % p.nTT;
-  const int ut = blockIdx.x / p.nTT;
+  const int tile = p.live != nullptr ? p.live[blockIdx.x] : blockIdx.x;
+  const int tt = tile % p.nTT;
+  const int ut = tile / p.nTT;
   const int bc = blockIdx.y;
   const int* R = p.ranges;
   const int klo = R[tt], khi = R[p.nTT + tt];
@@ -400,9 +416,15 @@ decode_grid_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constan
     a.next(1);
   }
 
-  // ---- epilogue: normalise, write the plane's rows (channel-first) ----
-  float* out = p.out + static_cast<size_t>(bc) * p.Ht * p.Wt;
-  const int tbase = blockIdx.x % p.nTT * kRows + row0 + g;
+  // ---- epilogue: normalise, write the plane's rows (channel-first): into
+  // the whole plane, or into this live tile's slot ----
+  const int wb = p.tiles_per_ut * 8;
+  const bool own = p.live != nullptr;  // write this live tile's own slot
+  float* out = p.out + (own ? (static_cast<size_t>(bc) * p.n_live + blockIdx.x) * kRows * wb
+                            : static_cast<size_t>(bc) * p.Ht * p.Wt);
+  const int pitch = own ? wb : p.Wt;
+  const int r0 = own ? tt * kRows : 0, c0 = own ? n0 * 8 : 0;
+  const int tbase = tt * kRows + row0 + g;
 #pragma unroll
   for (int i = 0; i < kMaxTiles; ++i) {
     if (i < n_here) {
@@ -413,22 +435,50 @@ decode_grid_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constan
         if (tr < p.Ht && u < p.Wt) {
           float v = acc[i][e];
           if (p.sA != nullptr) v = v / (p.sA[tr] * p.sB[u] + 1e-8f);
-          out[static_cast<size_t>(tr) * p.Wt + u] = v;
+          out[static_cast<size_t>(tr - r0) * pitch + (u - c0)] = v;
         }
       }
     }
   }
 }
 
-// (B, C, P) -> (B, P, C) through 32x32 shared-memory tiles.
+// Without cells: (B, C, P) -> (B, P, C) through 32x32 shared-memory tiles.
+// With cells (P of them, flat indices into Ht x Wt): (B, P, C) gathered from
+// the live tiles' slots (B, C, n_live, kRows, wb), through the same tiles; a
+// cell whose tile is not in the live list comes out NaN.
 __global__ void __launch_bounds__(256)
-channels_last_kernel(const float* __restrict__ in, float* __restrict__ out, int C, int P) {
+channels_last_kernel(const float* __restrict__ in, float* __restrict__ out, int C, int P,
+                     const long long* __restrict__ cells, const int* __restrict__ live,
+                     int n_live, int nTT, int Wt, int wb) {
   __shared__ float tile[32][33];
+  __shared__ long long src[32];  // with cells: each column's offset in its plane, -1 if none
   const int b = blockIdx.z, p0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
   const int tx = threadIdx.x, ty = threadIdx.y;
+  size_t plane = P;
+  if (cells != nullptr) {
+    plane = static_cast<size_t>(n_live) * kRows * wb;
+    if (ty == 0 && p0 + tx < P) {
+      const long long cell = cells[p0 + tx];
+      const int tr = static_cast<int>(cell / Wt), u = static_cast<int>(cell % Wt);
+      const int want = u / wb * nTT + tr / kRows;
+      int lo = 0, hi = n_live;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (live[mid] < want) lo = mid + 1; else hi = mid;
+      }
+      src[tx] = lo < n_live && live[lo] == want
+                    ? (static_cast<long long>(lo) * kRows + tr % kRows) * wb + u % wb
+                    : -1;
+    }
+    __syncthreads();
+  }
   for (int i = ty; i < 32; i += 8) {
     const int c = c0 + i, pp = p0 + tx;
-    if (c < C && pp < P) tile[i][tx] = in[(static_cast<size_t>(b) * C + c) * P + pp];
+    if (c < C && pp < P) {
+      const long long at = cells == nullptr ? pp : src[tx];
+      tile[i][tx] = at < 0 ? __int_as_float(0x7fc00000)
+                           : in[(static_cast<size_t>(b) * C + c) * plane + at];
+    }
   }
   __syncthreads();
   for (int i = ty; i < 32; i += 8) {
@@ -476,7 +526,7 @@ int launch_decode(const CUtensorMap& tmA, const CUtensorMap& tmF, const DecodeAr
   cudaError_t err = cudaFuncSetAttribute(decode_grid_kernel<kF32>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(args.nTT * args.nUT, BC);
+  const dim3 grid(args.live != nullptr ? args.n_live : args.nTT * args.nUT, BC);
   decode_grid_kernel<kF32><<<grid, kThreads, smem, stream>>>(tmA, tmF, args);
   return static_cast<int>(cudaGetLastError());
 }
@@ -487,13 +537,19 @@ int launch_decode(const CUtensorMap& tmA, const CUtensorMap& tmF, const DecodeAr
 // f: (B*C, H, Wq) bf16 (f_is_f32 = 0) or f32, channel-first, Wq % 8 == 0.
 // bfrag: stage-2 fragments of Bm, (W/64 chunks, NTg, 8, 32, 2) f32.
 // sA (Ht) and sB (Wt) or both null; ranges as in DecodeArgs.
-// out_cf (B*C, Ht, Wt) scratch, out (B, Ht, Wt, C). Returns a cudaError_t.
+// live: null, every target cell: out_cf (B*C, Ht, Wt) scratch, out (B, Ht, Wt, C).
+// Else the n_live live block tiles (ascending ut * nTT + tt) of the n_cells
+// cells (flat indices into Ht x Wt): out_cf (B*C, n_live, 64, tiles_per_ut * 8)
+// scratch, out (B, n_cells, C). Returns a cudaError_t.
 extern "C" int setconv_decode_grid(const void* a3, const void* f, int f_is_f32,
                                    const float* bfrag, const float* sA, const float* sB,
-                                   const int* ranges, float* out_cf, float* out, int B, int C,
-                                   int H, int Wq, int Htp, int Hp, int Ht, int Wt, int nTT,
-                                   int nUT, int NTg, int tiles_per_ut, void* stream) {
+                                   const int* ranges, const int* live, int n_live,
+                                   const long long* cells, int n_cells, float* out_cf,
+                                   float* out, int B, int C, int H, int Wq, int Htp, int Hp,
+                                   int Ht, int Wt, int nTT, int nUT, int NTg, int tiles_per_ut,
+                                   void* stream) {
   if (B == 0 || C == 0 || Ht == 0 || Wt == 0) return 0;
+  if (live != nullptr && (n_live == 0 || n_cells == 0)) return 0;
   if (tiles_per_ut > kMaxTiles || Htp % kRows != 0 || Hp % kK != 0 || Wq % 8 != 0 ||
       B * C > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -507,13 +563,15 @@ extern "C" int setconv_decode_grid(const void* a3, const void* f, int f_is_f32,
                 f32 ? 4 : 2, f, {(cuuint64_t)Wq, (cuuint64_t)H, (cuuint64_t)B * C},
                 {f32 ? kCols / 2u : (cuuint32_t)kCols, kK, 1}))
     return static_cast<int>(cudaErrorInvalidValue);
-  const DecodeArgs args{reinterpret_cast<const float2*>(bfrag), sA, sB, ranges, out_cf,
-                        Ht, Wt, nTT, nUT, NTg, tiles_per_ut};
+  const DecodeArgs args{reinterpret_cast<const float2*>(bfrag), sA, sB, ranges, live, out_cf,
+                        Ht, Wt, nTT, nUT, NTg, tiles_per_ut, n_live};
   int rc = f32 ? launch_decode<true>(tmA, tmF, args, B * C, s)
                : launch_decode<false>(tmA, tmF, args, B * C, s);
   if (rc != 0) return rc;
-  const int P = Ht * Wt;
+  const int P = live == nullptr ? Ht * Wt : n_cells;
   const dim3 grid((P + 31) / 32, (C + 31) / 32, B);
-  channels_last_kernel<<<grid, dim3(32, 8), 0, s>>>(out_cf, out, C, P);
+  channels_last_kernel<<<grid, dim3(32, 8), 0, s>>>(out_cf, out, C, P,
+                                                    live == nullptr ? nullptr : cells, live,
+                                                    n_live, nTT, Wt, tiles_per_ut * 8);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,12 +6,16 @@ Counterpart of ``Predictor`` in ``deepsensornz_tpu/infer/predict.py``:
   latitude/longitude coordinates, NaN = sea), runs the forward on the
   model's device, rescales the predictive spread by ``std_scale``, takes
   the head's mean/std and, with ``n_samples > 0``, joint samples over the
-  whole grid; gathers the land cells on the device, and returns them
-  unnormalised as ``Field``s with NaN sea cells. A request is a list of
-  chunks: the whole batch, or fixed-size chunks of ``batch_chunk`` tasks
-  when the batch is longer. Every chunk is launched first; the host then
-  waits for each chunk's copy and writes its rows of the maps, a map a job
-  on ``download_threads`` workers, while the later chunks run. The host's
+  whole grid; only the land cells leave the device, and they return
+  unnormalised as ``Field``s with NaN sea cells. Without samples the
+  decode, the head and the moments run on the land cells alone (the
+  decode kernel on the block tiles that hold land); with samples on the
+  whole grid, the land cells gathered after the draws, so the draws are
+  the whole grid's. A request is a list of chunks: the whole batch, or
+  fixed-size chunks of ``batch_chunk`` tasks when the batch is longer.
+  Every chunk is launched first; the host then waits for each chunk's
+  copy and writes its rows of the maps, a map a job on
+  ``download_threads`` workers, while the later chunks run. The host's
   maps are computed on the land values alone (dequantise,
   ``post_transform``, which must be elementwise, and unnormalise), and
   each ``Field``'s array is written once, by one gather that puts NaN on
@@ -78,6 +82,7 @@ from deepsensornz_tpu_torch.data.grid import Dataset, Field, interp_grid_at_poin
 from deepsensornz_tpu_torch.data.processor import DataProcessor
 from deepsensornz_tpu_torch.infer.ar import ar_sample, sample_rows
 from deepsensornz_tpu_torch.infer.staging import StagingRing
+from deepsensornz_tpu_torch.ops import setconv_cuda
 from deepsensornz_tpu_torch.parallel.mesh import gather_rows, rank_indices
 from deepsensornz_tpu_torch.perf import spans
 from deepsensornz_tpu_torch.task.batching import take
@@ -178,10 +183,12 @@ def _upload(task: TaskBatch, target: tuple, device: torch.device,
             upload_dtype: Optional[str], ring: Optional[StagingRing]) -> tuple:
     """(task, target) of the grid path on ``device``: the task with its
     target-side leaves, unused when predicting on a grid, cut to one
-    placeholder slot, and the target grid's numpy ``(xt1, xt2, aux, land)``
-    (``aux`` and ``land`` may be None) as tensors. With ``upload_dtype``
-    the value leaves (grid and point ``y`` and ``mask``) cross in that
-    dtype and are upcast to float32 on the device; coordinates stay
+    placeholder slot, and the target grid's ``(xt1, xt2, aux, land)`` as
+    tensors: numpy ``xt1``, ``xt2`` and ``aux`` (or None), and ``land`` None,
+    the numpy land index or its host
+    :class:`~deepsensornz_tpu_torch.ops.setconv_cuda.TargetCells`. With
+    ``upload_dtype`` the value leaves (grid and point ``y`` and ``mask``)
+    cross in that dtype and are upcast to float32 on the device; coordinates stay
     float32. With ``ring``, every host leaf goes through the pinned
     staging ring (:mod:`~deepsensornz_tpu_torch.infer.staging`); the rest,
     and every leaf without one, by ``.to(device)``, counted under
@@ -198,7 +205,10 @@ def _upload(task: TaskBatch, target: tuple, device: torch.device,
     grids = [(put(g.x1), put(g.x2), put(g.y, True), put(g.mask, True)) for g in task.grids]
     points = [(put(p.x), put(p.y, True), put(p.mask, True)) for p in task.points]
     rest = [put(t) for t in (task.xt[:, :1], task.yt_mask[:, :1], task.x1g, task.x2g)]
-    grid = [put(None if a is None else torch.from_numpy(a)) for a in target]
+    xt1, xt2, aux, land = target
+    cells = isinstance(land, setconv_cuda.TargetCells)
+    grid = [put(None if a is None else torch.as_tensor(a))
+            for a in (xt1, xt2, aux, *(land if cells else (land,)))]
     got = [None] * len(leaves)
     if ring is not None:
         host = [i for i, (t, _, _) in enumerate(leaves) if t.device.type == "cpu"]
@@ -215,10 +225,11 @@ def _upload(task: TaskBatch, target: tuple, device: torch.device,
         return None if i is None else got[i].float() if leaves[i][2] else got[i]
 
     xt, yt_mask, x1g, x2g = map(leaf, rest)
+    xt1, xt2, aux, *land = map(leaf, grid)
     return (TaskBatch(grids=tuple(GridContext(*map(leaf, g)) for g in grids),
                       points=tuple(PointContext(*map(leaf, p)) for p in points),
                       xt=xt, yt=None, yt_mask=yt_mask, yt_aux=None, x1g=x1g, x2g=x2g),
-            tuple(map(leaf, grid)))
+            (xt1, xt2, aux, setconv_cuda.TargetCells(*land) if cells else land[0]))
 
 
 def _gather_out(out: dict, mesh, batch: int) -> dict:
@@ -366,6 +377,9 @@ class Predictor:
             with spans.span("predict_grid.prepare"):
                 lat, lon, xt1, xt2, aux, land, inv = self._prepare(
                     task, target_elev, aux_at_targets, sea_mask, resolution_factor)
+                if land is not None and n_samples == 0:
+                    # without draws over the whole grid, only the land is computed
+                    land = setconv_cuda.target_cells(land, len(xt1), len(xt2))
             maps = self._forward_chunked(task, xt1, xt2, aux, n_samples, seed, outputs, land,
                                          inv, unnormalise, post_transform, mesh)
             with spans.span("predict_grid.maps"):
@@ -474,7 +488,9 @@ class Predictor:
                          unnormalise, post_transform, mesh=None) -> dict:
         """The request's finished float32 maps, one list of ``dim_yt``
         channels a key: mean/std (B, Ht, Wt) and samples (n, B, Ht, Wt),
-        NaN outside ``land`` when given (:meth:`_write_maps`). The batch is
+        NaN outside the land when ``land`` is given (:meth:`_write_maps`):
+        the land index, or its ``TargetCells`` when the forward computes
+        the land cells alone (:meth:`_device_forward`). The batch is
         one chunk, or chunks of ``batch_chunk`` when it is longer (the tail
         padded with the batch's last task). The inputs are uploaded once;
         every chunk is launched (with ``mesh``, on the data ranks' rows,
@@ -500,7 +516,8 @@ class Predictor:
                     task = take(task, np.concatenate(mine))
                     chunks = [np.arange(i * len(m), (i + 1) * len(m)) for i, m in enumerate(mine)]
                 ring = self._ring if dev.type == "cuda" else None
-                task, target = _upload(task, (xt1, xt2, aux, land), dev, self.upload_dtype, ring)
+                task, target = _upload(task, (xt1, xt2, aux, land), dev, self.upload_dtype,
+                                       ring)
             for off, idx in zip(offsets, chunks):
                 with spans.span("predict_grid.launch"):
                     rows = task if len(chunks) == 1 else take(task, torch.from_numpy(idx).to(dev))
@@ -528,15 +545,22 @@ class Predictor:
         the samples are drawn as for the batch (:func:`sample_rows`) and
         the result is the batch's, gathered from every rank. ``target``:
         the target grid's ``(xt1, xt2, aux, land)`` on the device
-        (:func:`_upload`)."""
+        (:func:`_upload`). Where ``land`` is a
+        :class:`~deepsensornz_tpu_torch.ops.setconv_cuda.TargetCells` (no
+        samples), the aux is taken at the land cells and the decode, the
+        head and the moments run on them alone; else on the whole grid,
+        then the land cells are gathered when ``land`` is an index."""
         dev = self.device
         xt1, xt2, aux, land = target
         with spans.span("predict_grid.device", device=dev):
             lik = self.likelihood
-            B, Ht, Wt = task.batch_size, len(xt1), len(xt2)
+            B = task.batch_size
+            cells = land if isinstance(land, setconv_cuda.TargetCells) else None
+            if aux is not None and cells is not None:
+                aux = aux.flatten(0, 1).index_select(0, cells.index)  # (L, A)
             aux_b = None if aux is None else aux.expand(B, *aux.shape)
-            raw = self.model(task, target_grid=(xt1, xt2, aux_b), mesh=mesh)
-            raw = lik.rescale_raw(raw, self.std_scale).reshape(B, Ht * Wt, -1)
+            raw = self.model(task, target_grid=(xt1, xt2, aux_b), mesh=mesh, cells=cells)
+            raw = lik.rescale_raw(raw, self.std_scale).flatten(1, -2)
             mean, std = lik.mean_std(raw)
             out = {k: v for k, v in (("mean", mean), ("std", std)) if k in outputs}
             if n_samples > 0:
@@ -545,7 +569,7 @@ class Predictor:
                 with spans.span("predict_grid.sample", device=dev):
                     out["samples"] = (lik.sample(raw, gen, n_samples) if mesh is None
                                       else sample_rows(lik, raw, gen, n_samples, mesh, batch))
-            if land is not None:
+            if land is not None and cells is None:
                 out = {k: v.index_select(-2, land) for k, v in out.items()}
             out = {k: v.float() for k, v in out.items()}
             bits = _QUANT_BITS.get(self.transfer_dtype)

@@ -27,7 +27,16 @@ time a gridded request's resamples: ``model.encode_grid`` (every gridded
 context onto the internal grid) and ``model.decode_grid`` (on a target
 grid: the decode, the aux appended and the MLP head), with the counters
 ``model.encode_grid_cells`` (source cells × channel planes, density
-included) and ``model.decode_grid_cells`` (target cells decoded).
+included) and ``model.decode_grid_cells`` (target cells decoded: B × L
+with a list of L cells).
+
+A gridded forward may take a list of target cells (``cells``, a
+:class:`..ops.setconv_cuda.TargetCells`, with the aux given at those cells):
+the decode then computes only those cells (on the card, B2 launches only
+its block tiles that hold one, and gathers the cells from them), and the
+head runs on them alone, (B, L, ·). Every step after the decode is per
+cell, so each listed cell's output is the whole grid's there, up to the
+head's f32 rounding at another GEMM size.
 
 The module is built explicitly from a task's shapes
 (:meth:`ConvNP.from_task`); its ``state_dict`` names mirror the flax tree
@@ -143,7 +152,8 @@ def _dense(cin: int, cout: int, generator, device) -> nn.Linear:
 class ConvNP(nn.Module):
     """``forward(task)`` → raw likelihood parameters (B, M, K) at
     ``task.xt``; ``forward(task, target_grid=(xt1, xt2, aux))`` →
-    (B, Ht, Wt, K) on the regular grid xt1 × xt2."""
+    (B, Ht, Wt, K) on the regular grid xt1 × xt2; with ``cells=``, (B, L, K)
+    at those cells of it."""
 
     def __init__(self, cfg: ConvNPConfig, grid_channels: Sequence[int],
                  point_channels: Sequence[int], aux_channels: int = 0, *,
@@ -264,35 +274,41 @@ class ConvNP(nn.Module):
             f = self.unet.raw(h, spatial=spatial)
         return f.permute(0, 2, 3, 1)
 
-    def _decode_grid(self, task: TaskBatch, f, xt1, xt2, ls, sp) -> torch.Tensor:
-        """The gridded decode of features f; on a block, the block's partial
-        normalised by the whole grid's row sums, summed over the group."""
+    def _decode_grid(self, task: TaskBatch, f, xt1, xt2, ls, sp, cells) -> torch.Tensor:
+        """The gridded decode of features f (at ``cells`` only, when given);
+        on a block, the block's partial normalised by the whole grid's row
+        sums, summed over the group."""
         if sp is None:
-            return setconv_cuda.decode_grid(task.x1g, task.x2g, f, xt1, xt2, ls)
+            return setconv_cuda.decode_grid(task.x1g, task.x2g, f, xt1, xt2, ls, cells=cells)
         row_sums = rbf(xt1[:, None], task.x1g[None, :], ls).sum(-1)
         return spatial_sum(setconv_cuda.decode_grid(
-            task.x1g[sp.start:sp.stop], task.x2g, f, xt1, xt2, ls, row_sums=row_sums), sp)
+            task.x1g[sp.start:sp.stop], task.x2g, f, xt1, xt2, ls, row_sums=row_sums,
+            cells=cells), sp)
 
     def forward(self, task: TaskBatch, target_grid: Optional[tuple] = None,
-                mesh=None) -> torch.Tensor:
+                mesh=None, cells: Optional[setconv_cuda.TargetCells] = None) -> torch.Tensor:
         """``mesh``: the mesh whose spatial axis partitions the internal
         grid, where ``mesh_axes`` is set (module docstring); every rank of
-        a spatial group passes the same task rows and gets the same output."""
+        a spatial group passes the same task rows and gets the same output.
+        ``cells``: with ``target_grid``, the L cells to compute (module
+        docstring); the aux is then (B, L, A) at those cells and the output
+        (B, L, K)."""
         sp = self.spatial_context(task, mesh)
         f = self.features(task, sp)
         if target_grid is None:
             return self._decode_head(task, f, None, task.yt_aux, sp)
         xt1, xt2, aux = target_grid
         with spans.span("model.decode_grid", device=f.device) as s:
-            raw = self._decode_head(task, f, (xt1, xt2), aux, sp)
+            raw = self._decode_head(task, f, (xt1, xt2), aux, sp, cells)
             if s is not None:
                 spans.count("model.decode_grid_cells", raw.shape[:-1].numel())
         return raw
 
     def _decode_head(self, task: TaskBatch, f, target_grid: Optional[tuple], aux,
-                     sp: Optional[SpatialContext]) -> torch.Tensor:
+                     sp: Optional[SpatialContext], cells=None) -> torch.Tensor:
         """The features decoded at ``task.xt``, or on the grid
-        ``target_grid`` = (xt1, xt2), the aux appended, the MLP head."""
+        ``target_grid`` = (xt1, xt2) (at its ``cells`` only, when given),
+        the aux appended, the MLP head."""
         cfg = self.cfg
         ls_dec = self.lengthscale("ls_decoder")
         if target_grid is not None:
@@ -309,13 +325,13 @@ class ConvNP(nn.Module):
         if hoist:
             # the decode is linear in f: decode(f) @ W == decode(f @ W)
             g = (f.float() @ k0[:, :dc].T).contiguous()
-            z = self._decode_grid(task, g, xt1, xt2, ls_dec, sp)
+            z = self._decode_grid(task, g, xt1, xt2, ls_dec, sp, cells)
             if aux is not None:
                 z = z + aux.float() @ k0[:, dc:].T
             z = z + b0
         else:
             if target_grid is not None:
-                dec = self._decode_grid(task, f, xt1, xt2, ls_dec, sp)
+                dec = self._decode_grid(task, f, xt1, xt2, ls_dec, sp, cells)
             elif sp is None:
                 dec = setconv_decode_offgrid(task.x1g, task.x2g, f.float(), task.xt, ls_dec)
             else:

@@ -98,7 +98,7 @@ def load_library() -> ctypes.CDLL:
     lib.setconv_encode_offgrid_grad.argtypes = [p, p, p, p, p, p, p, p, i, p, p,
                                                 *[i] * 5, ctypes.c_float, p]
     lib.setconv_encode_offgrid_grad.restype = i
-    lib.setconv_decode_grid.argtypes = [p, p, i, p, p, p, p, p, p, *[i] * 12, p]
+    lib.setconv_decode_grid.argtypes = [p, p, i, p, p, p, p, p, i, p, i, p, p, *[i] * 12, p]
     lib.setconv_decode_grid.restype = i
     lib.setconv_error_string.argtypes = [i]
     lib.setconv_error_string.restype = ctypes.c_char_p

@@ -122,12 +122,14 @@ def setconv_decode_offgrid(x1g, x2g, f, xt, lengthscale, normalize=True) -> torc
 
 
 def setconv_decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize=True,
-                        row_sums=None) -> torch.Tensor:
+                        row_sums=None, cells=None) -> torch.Tensor:
     """Interpolate internal-grid features (B, H, W, C) onto the regular
     target grid xt1 (Ht,) × xt2 (Wt,) → (B, Ht, Wt, C): two matmuls,
     (Ht,H) @ f @ (W,Wt), normalised by (Σ_h A)(Σ_w B). ``row_sums`` (Ht,)
     stands in for Σ_h A: on a block of the grid's rows, the whole grid's
-    sums make the blocks' outputs add up to the whole decode."""
+    sums make the blocks' outputs add up to the whole decode. ``cells``
+    (L,) int64, flat indices into Ht × Wt: the whole decode's rows at those
+    cells, (B, L, C)."""
     A = rbf(xt1[:, None], x1g[None, :], lengthscale)   # (Ht, H)
     Bm = rbf(xt2[:, None], x2g[None, :], lengthscale)  # (Wt, W)
     t = torch.einsum("th,bhwc->btwc", A, f.float())
@@ -136,4 +138,6 @@ def setconv_decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize=True,
         sA = A.sum(-1) if row_sums is None else row_sums
         z = sA[:, None] * Bm.sum(-1)[None, :]
         out = out / (z[None, ..., None] + DENSITY_EPS)
+    if cells is not None:
+        out = out.flatten(1, 2).index_select(1, cells)
     return out

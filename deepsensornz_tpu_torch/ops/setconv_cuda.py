@@ -8,13 +8,18 @@ Counterpart of ``deepsensornz_tpu/ops/setconv_pallas.py``:
   gradient with respect to the length-scale, the encode's backward when
   the model trains;
 - :func:`decode_grid` (``csrc/setconv_decode.cu``) interpolates the U-Net
-  output onto a regular target grid.
+  output onto a regular target grid, or onto a list of its cells
+  (:class:`TargetCells`): then only the kernel's block tiles that hold a
+  listed cell are launched.
 
 The device decides, not a flag: a CUDA tensor launches the kernel (or the
 wrapper raises), a CPU tensor takes the plain version from :mod:`.setconv`.
 There is no fallback from one to the other. Each wrapper counts its kernel
 launches in the perf recorder (``launches.<wrapper>``; :func:`launch_counts`)
-so a run can show which path it took.
+so a run can show which path it took. While spans record, a decode onto a
+list of cells counts, on either device, the block tiles × planes of the
+whole target grid under ``decode_grid.tiles`` and the list's live tiles ×
+planes, those the card launches, under ``decode_grid.tiles_live``.
 
 The encode is differentiable in its length-scale only (the parameter the
 model learns through it); the gridded decode is forward only, since no
@@ -26,6 +31,9 @@ gradient's ticket counter) and do not synchronise.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -268,6 +276,37 @@ def decode_tiling(Ht: int, W: int, Wt: int) -> dict:
                 nUT=nUT, tiles_per_ut=_cdiv(NTg, nUT))
 
 
+def decode_live_tiles(cells, Ht: int, Wt: int) -> np.ndarray:
+    """The decode kernel's live block tiles for the target cells ``cells``
+    (flat indices into Ht × Wt): every block tile (``DECODE_BLOCK`` target
+    rows × one block of target-column tiles, :func:`decode_tiling`) that
+    holds a listed cell, as ``ut · nTT + tt``, ascending, int32."""
+    t = decode_tiling(Ht, 0, Wt)
+    rows, cols = np.divmod(np.asarray(cells, np.int64), Wt)
+    live = np.zeros(t["nTT"] * t["nUT"], bool)
+    live[cols // (t["tiles_per_ut"] * 8) * t["nTT"] + rows // DECODE_BLOCK] = True
+    return np.flatnonzero(live).astype(np.int32)
+
+
+class TargetCells(NamedTuple):
+    """The cells of a target grid that a gridded decode computes: ``index``
+    (L,) int64, their flat indices into Ht × Wt, and ``tiles``, the decode
+    kernel's live tiles for them (:func:`decode_live_tiles`) as an int32
+    tensor, on the same device."""
+
+    index: torch.Tensor
+    tiles: torch.Tensor
+
+
+def target_cells(index, Ht: int, Wt: int, device=None) -> TargetCells:
+    """:class:`TargetCells` of the flat cell indices ``index`` of an
+    Ht × Wt grid, on ``device`` (by default the host's, sharing
+    ``index``'s memory where it is an int64 array)."""
+    index = np.asarray(index, np.int64)
+    return TargetCells(torch.from_numpy(index).to(device),
+                       torch.from_numpy(decode_live_tiles(index, Ht, Wt)).to(device))
+
+
 def decode_ranges(A: torch.Tensor, Bm: torch.Tensor) -> dict[str, torch.Tensor]:
     """The blocks of the decode that hold a nonzero weight, from A (Ht, H)
     and Bm (W, Wt): for each target-row tile the source-row blocks
@@ -311,20 +350,30 @@ def _channel_first(f: torch.Tensor) -> torch.Tensor:
 
 
 def decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize: bool = True,
-                row_sums=None) -> torch.Tensor:
+                row_sums=None, cells: TargetCells | None = None) -> torch.Tensor:
     """Gridded SetConv decode: f (B, H, W, C) on the internal grid
-    x1g (H,) × x2g (W,) → (B, Ht, Wt, C) float32 on xt1 (Ht,) × xt2 (Wt,).
+    x1g (H,) × x2g (W,) → (B, Ht, Wt, C) float32 on xt1 (Ht,) × xt2 (Wt,),
+    or with ``cells`` (B, L, C) at those L cells only.
     Same contract as :func:`.setconv.setconv_decode_grid`, ``row_sums``
     included (a block's decode normalised by the whole grid's sums); f may
     be float32 or bfloat16, contiguous NHWC or a channel-first tensor seen
-    as NHWC. A target tile that no source row reaches comes out 0."""
-    if _device_of(f) == "cpu":
-        return plain.setconv_decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize,
-                                         row_sums)
-    _forward_only(x1g, x2g, f, xt1, xt2, lengthscale, row_sums)
-    dev = f.device
+    as NHWC. A target tile that no source row reaches comes out 0.
+
+    With ``cells`` the kernel runs only the live block tiles (a grid of
+    live tiles × planes, listed on the host, so the launch needs no sync)
+    and its second kernel gathers the listed cells from them: each value is
+    bitwise the full launch's at that cell. No cell, no launch."""
     B, H, W, C = f.shape
     Ht, Wt = xt1.shape[0], xt2.shape[0]
+    tiling = decode_tiling(Ht, W, Wt)
+    if cells is not None and spans.active():
+        spans.count("decode_grid.tiles", tiling["nTT"] * tiling["nUT"] * B * C)
+        spans.count("decode_grid.tiles_live", cells.tiles.shape[0] * B * C)
+    if _device_of(f) == "cpu":
+        return plain.setconv_decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize,
+                                         row_sums, None if cells is None else cells.index)
+    _forward_only(x1g, x2g, f, xt1, xt2, lengthscale, row_sums)
+    dev = f.device
     checks = [("x1g", x1g, (H,)), ("x2g", x2g, (W,)), ("xt1", xt1, (Ht,)), ("xt2", xt2, (Wt,))]
     if row_sums is not None:
         checks.append(("row_sums", row_sums, (Ht,)))
@@ -334,27 +383,45 @@ def decode_grid(x1g, x2g, f, xt1, xt2, lengthscale, normalize: bool = True,
         raise TypeError(f"f must be float32 or bfloat16, got {f.dtype}")
     if not (f.is_contiguous() or f.permute(0, 3, 1, 2).is_contiguous()):
         raise ValueError("f must be contiguous NHWC or a channel-first tensor seen as NHWC")
+    if cells is not None:
+        for name, v, dtype in (("cells.index", cells.index, torch.int64),
+                               ("cells.tiles", cells.tiles, torch.int32)):
+            if v.device != dev or v.dtype != dtype or v.dim() != 1 or not v.is_contiguous():
+                raise ValueError(f"{name} must be a contiguous 1-d {dtype} tensor on {dev}, "
+                                 f"got {v.dtype} {tuple(v.shape)} on {v.device}")
+        L, n_live = cells.index.shape[0], cells.tiles.shape[0]
+        if L == 0:
+            return torch.empty((B, 0, C), dtype=torch.float32, device=dev)
+        if n_live == 0:
+            raise ValueError("cells.tiles is empty: pass decode_live_tiles of cells.index")
     # the RBF weights and their sums are built here, as the Pallas wrapper
     # builds them in XLA; the contractions and the epilogue are the kernel's
     A = plain.rbf(xt1[:, None], x1g[None, :], lengthscale)   # (Ht, H)
     Bm = plain.rbf(x2g[:, None], xt2[None, :], lengthscale)  # (W, Wt)
     sA = (A.sum(-1) if row_sums is None else row_sums) if normalize else None
     sB = Bm.sum(0) if normalize else None
-    t = decode_tiling(Ht, W, Wt)
     Hp = _cdiv(H, DECODE_BLOCK) * DECODE_BLOCK
-    A3 = torch.stack(split_bf16x3(F.pad(A, (0, Hp - H, 0, t["nTT"] * DECODE_BLOCK - Ht))))
-    bfrag = _bm_fragments(Bm, t["nWC"], t["NTg"])
+    A3 = torch.stack(split_bf16x3(F.pad(A, (0, Hp - H, 0, tiling["nTT"] * DECODE_BLOCK - Ht))))
+    bfrag = _bm_fragments(Bm, tiling["nWC"], tiling["NTg"])
     r = decode_ranges(A, Bm)
     ranges = torch.cat([r[k] for k in ("klo", "khi", "wlo", "whi")]).int()
     fcf = _channel_first(f)
-    out_cf = torch.empty((B * C, Ht, Wt), dtype=torch.float32, device=dev)
-    out = torch.empty((B, Ht, Wt, C), dtype=torch.float32, device=dev)
+    if cells is None:
+        out_cf = torch.empty((B * C, Ht, Wt), dtype=torch.float32, device=dev)
+        out = torch.empty((B, Ht, Wt, C), dtype=torch.float32, device=dev)
+        live = index = None
+    else:  # each live tile's own slot, then the listed cells gathered
+        out_cf = torch.empty((B * C, n_live, DECODE_BLOCK, tiling["tiles_per_ut"] * 8),
+                             dtype=torch.float32, device=dev)
+        out = torch.empty((B, L, C), dtype=torch.float32, device=dev)
+        live, index = cells.tiles.data_ptr(), cells.index.data_ptr()
     _launch("setconv_decode_grid", A3.data_ptr(), fcf.data_ptr(),
             int(f.dtype == torch.float32), bfrag.data_ptr(),
             None if sA is None else sA.data_ptr(), None if sB is None else sB.data_ptr(),
-            ranges.data_ptr(), out_cf.data_ptr(), out.data_ptr(), B, C, H, fcf.shape[-1],
-            A3.shape[1], Hp, Ht, Wt, t["nTT"], t["nUT"], t["NTg"], t["tiles_per_ut"],
-            device=dev)
+            ranges.data_ptr(), live, 0 if cells is None else n_live, index,
+            0 if cells is None else L, out_cf.data_ptr(), out.data_ptr(), B, C, H,
+            fcf.shape[-1], A3.shape[1], Hp, Ht, Wt, tiling["nTT"], tiling["nUT"], tiling["NTg"],
+            tiling["tiles_per_ut"], device=dev)
     spans.count("launches.decode_grid")
     return out
 

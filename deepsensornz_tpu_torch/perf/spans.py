@@ -25,7 +25,8 @@ host time. On the CPU it is timed on the host.
 
 **Counters** are integer adds under a lock, always on: :func:`count`,
 :func:`counters`, :func:`reset`. The SetConv wrappers count their
-launches under ``launches.``, ``native.taskpack`` its native calls under
+launches under ``launches.`` (and, while recording, the gridded decode its
+block tiles under ``decode_grid.``), ``native.taskpack`` its native calls under
 ``taskpack.`` and the spatial collectives their calls and bytes under
 ``halo.``.
 """
@@ -138,7 +139,7 @@ def span(name: str, parent: Optional[Span] = None, group: Optional[int] = None,
     request or step of a span with no parent (:func:`new_group`); by
     default the parent's, or a root's own id. ``device``: on a CUDA device,
     a device span (module docstring)."""
-    if not (_recording or _profiler._is_profiler_enabled):
+    if not active():
         return _OFF
     if parent is None:
         stack = _stack()
@@ -159,6 +160,12 @@ def new_group() -> Optional[int]:
     if not (_recording or _profiler._is_profiler_enabled):
         return None
     return next(_ids)
+
+
+def active() -> bool:
+    """Whether spans record now: a torch profiler runs or a
+    :func:`recording` block is open."""
+    return bool(_recording or _profiler._is_profiler_enabled)
 
 
 @contextlib.contextmanager

@@ -35,6 +35,7 @@ from deepsensornz_tpu.task.task import TaskBatch as JTask
 from deepsensornz_tpu_torch.models import likelihoods as tlik
 from deepsensornz_tpu_torch.models.convnp import ConvNP, ConvNPConfig
 from deepsensornz_tpu_torch.models.unet import UNet
+from deepsensornz_tpu_torch.ops import setconv_cuda
 from deepsensornz_tpu_torch.task.task import TaskBatch
 from deepsensornz_tpu_torch.train.checkpoint import params_from_jax
 
@@ -176,6 +177,41 @@ def test_convnp_gridded_matches_jax(rng, cfg_kw, target_hw):
         got = model(task, target_grid=tuple(torch.from_numpy(a) for a in (xt1, xt2, aux)))
     assert got.shape == want.shape
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("cfg_kw,target_hw", [
+    (dict(likelihood="gnp"), (13, 11)),
+    (dict(likelihood="cnp"), (70, 90)),
+    (dict(likelihood="bernoulli-gamma"), (13, 11)),
+    # the hoisted head: the decode carries the first layer's outputs
+    (dict(likelihood="cnp", mlp_layers=0), (50, 40)),
+])
+def test_gridded_forward_at_cells_is_the_whole_grids_rows(rng, cfg_kw, target_hw):
+    """The gridded forward given a list of target cells, with the aux at
+    targets taken at those cells, equals the JAX gridded forward's and the
+    port's own whole-grid forward's rows at those cells within the f32
+    tolerance (the head's GEMM has another M), and gives (B, 0, K) for an
+    empty list."""
+    jmodel, params, jtask, model, task = _pair(rng, **cfg_kw)
+    Ht, Wt = target_hw
+    xt1 = np.linspace(0, 1, Ht).astype(np.float32)
+    xt2 = np.linspace(0, 1, Wt).astype(np.float32)
+    aux = rng.normal(size=(2, Ht, Wt, 1)).astype(np.float32)
+    idx = np.sort(rng.choice(Ht * Wt, Ht * Wt // 6, replace=False))
+    cells = setconv_cuda.target_cells(idx, Ht, Wt)
+    jax_rows = np.asarray(jmodel.apply(params, jtask, target_grid=(
+        jnp.asarray(xt1), jnp.asarray(xt2), jnp.asarray(aux))))
+    xt1, xt2, aux = map(torch.from_numpy, (xt1, xt2, aux))
+    with torch.no_grad():
+        whole = model(task, target_grid=(xt1, xt2, aux))
+        got = model(task, target_grid=(xt1, xt2, aux.flatten(1, 2)[:, idx]), cells=cells)
+        none = model(task, target_grid=(xt1, xt2, aux.flatten(1, 2)[:, :0]),
+                     cells=setconv_cuda.target_cells([], Ht, Wt))
+    K = whole.shape[-1]
+    assert got.shape == (2, len(idx), K) and none.shape == (2, 0, K)
+    assert jax_rows.shape == (2, Ht, Wt, K)
+    _close(got.numpy(), jax_rows.reshape(2, -1, K)[:, idx])
+    _close(got.numpy(), whole.reshape(2, -1, K)[:, idx].numpy())
 
 
 def test_init_matches_flax_names_shapes_and_lengthscales(rng):

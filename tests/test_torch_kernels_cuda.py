@@ -725,6 +725,120 @@ def test_decode_grid_block_reaching_no_target_tile_gives_zeros(cuda):
     assert bool((got == 0).all())
 
 
+def _benchmark_domain(traffic: str):
+    """The benchmark's domain of a traffic mix: its x-space target grid, the
+    608² internal grid at density 500 and its land mask (cells near a
+    registry site, 15.8 %)."""
+    import json
+    from pathlib import Path
+
+    from benchmark import inputs
+
+    path = Path(__file__).resolve().parents[1] / "benchmark" / "traffic" / f"{traffic}.json"
+    return inputs.domain(json.loads(path.read_text()), {"internal_density": 500}, 0)
+
+
+@pytest.mark.parametrize("traffic,live", [("wrf-cycle24", (112, 330)), ("cycle24", (10, 15))])
+def test_decode_grid_on_the_live_tiles_is_the_full_launch_at_the_land(cuda, traffic, live):
+    """B2 launched on the block tiles that hold the benchmark's land, with
+    its gather: bit for bit the full launch at every land cell, 24 tasks of
+    64 bf16 channels on the 608² grid at the serving ℓ, at 1390×1300 and at
+    278×260, in one launch."""
+    dom = _benchmark_domain(traffic)
+    Ht, Wt = dom.land.shape
+    land = np.flatnonzero(dom.land.ravel())
+    t = setconv_cuda.decode_tiling(Ht, 608, Wt)
+    assert (len(setconv_cuda.decode_live_tiles(land, Ht, Wt)), t["nTT"] * t["nUT"]) == live
+    x1g, x2g, xt1, xt2 = (torch.from_numpy(a).to(cuda) for a in (dom.x1g, dom.x2g, dom.xt1,
+                                                                  dom.xt2))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    f = torch.randn(24, 608, 608, 64, device=cuda, generator=g).to(torch.bfloat16)
+    full = setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, 0.005)
+    cells = setconv_cuda.target_cells(land, Ht, Wt, cuda)
+    before = setconv_cuda.launch_counts()["decode_grid"]
+    got = setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, 0.005, cells=cells)
+    assert setconv_cuda.launch_counts()["decode_grid"] == before + 1
+    assert got.shape == (24, len(land), 64)
+    for b in range(24):
+        assert torch.equal(got[b], full[b].reshape(-1, 64).index_select(0, cells.index)), b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["all", "corners", "random", "empty"])
+def test_decode_grid_on_live_tiles_at_the_edges(cuda, kind, dtype):
+    """Every cell listed (every tile live), one cell in each corner and in
+    the ragged last row and column tiles, a random fifth of the cells with
+    a block's row sums, and no cell (no launch, (B, 0, C)): bit for bit
+    the full launch at the listed cells. 150 target rows (the last row
+    tile 22), 300 columns (4 blocks of 80), 9 channels, ℓ 0.05."""
+    x1g, x2g, f, xt1, xt2 = _grid(2, 100, 70, 9, 150, 300, dtype, cuda)
+    n = 150 * 300
+    rng = np.random.default_rng(2)
+    idx = {"all": np.arange(n), "empty": np.zeros(0, np.int64),
+           "random": np.sort(rng.choice(n, n // 5, replace=False)),
+           "corners": np.array([0, 299, 75 * 300 + 299, 149 * 300, 149 * 300 + 150, n - 1])}[kind]
+    row_sums = (setconv.rbf(xt1[:, None], x1g[None, :], 0.05).sum(-1) * 1.5
+                if kind == "random" else None)
+    cells = setconv_cuda.target_cells(idx, 150, 300, cuda)
+    full = setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, 0.05, row_sums=row_sums)
+    before = setconv_cuda.launch_counts()["decode_grid"]
+    got = setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, 0.05, row_sums=row_sums, cells=cells)
+    assert setconv_cuda.launch_counts()["decode_grid"] == before + int(kind != "empty")
+    assert got.shape == (2, len(idx), 9)
+    torch.testing.assert_close(got, full.reshape(2, -1, 9)[:, cells.index], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="cells.index"):
+        setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, 0.05, cells=setconv_cuda.TargetCells(
+            cells.index.int(), cells.tiles))
+
+
+def test_a_wrf_land_forward_does_not_synchronise(cuda, monkeypatch):
+    """One gridded forward of the flagship-width cnp model at the WRF shapes
+    (24 tasks; base, aux and targets 1390×1300; the benchmark's land),
+    ``Predictor._device_forward`` from the uploaded inputs to the moments,
+    runs under ``torch.cuda.set_sync_debug_mode("error")``: the decode's
+    live tiles come from the host. While recording it counts the 330 block
+    tiles × 1536 planes, the 112 live ones and 24 × 285 506 decoded cells;
+    its moments equal the whole-grid forward's at the land within f32."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from deepsensornz_tpu_torch.infer import predict as tpredict
+    from deepsensornz_tpu_torch.perf import spans
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    dom = _benchmark_domain("wrf-cycle24")
+    Ht, Wt = dom.land.shape
+    land = np.flatnonzero(dom.land.ravel())
+    cfg = dataclasses.replace(cs.flagship_config(), likelihood="cnp")
+    task = cs.cycle_task(0, 24, cfg.internal_density, base_hw=(Ht, Wt), aux_hw=(Ht, Wt))
+    model = cs.build_model(cfg, task, seed=0, device=cuda)
+    pred = tpredict.Predictor(model, cs.make_processor("t"), "t")
+    aux = np.random.default_rng(0).normal(size=(Ht, Wt, 1)).astype(np.float32)
+    cells = setconv_cuda.target_cells(land, Ht, Wt)
+    up, target = tpredict._upload(task, (dom.xt1, dom.xt2, aux, cells), cuda, None, pred._ring)
+    torch.cuda.synchronize()
+    outputs = ("mean", "std")
+    with torch.inference_mode():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = pred._device_forward(up, target, 0, 0, outputs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        spans.reset("decode_grid.")
+        spans.reset("model.decode_grid_cells")
+        with spans.recording():
+            again = pred._device_forward(up, target, 0, 0, outputs)
+        spans.clear()
+        whole = pred._device_forward(up, target[:3] + (target[3].index,), 0, 0, outputs)
+    assert spans.counters("decode_grid.") == {"decode_grid.tiles": 330 * 24 * 64,
+                                              "decode_grid.tiles_live": 112 * 24 * 64}
+    assert spans.counters("model.decode_grid_cells") == {"model.decode_grid_cells": 24 * 285506}
+    for key in outputs:
+        assert got[key].shape == (24, 285506, 1)
+        assert torch.equal(got[key], again[key])
+        _close(got[key], whole[key])
+
+
 def test_two_rank_gloo_spatial_partition_on_the_card(cuda, monkeypatch):
     """The chip script's [spatial] phase at its small model: 2 ranks on card
     0 (gloo on CUDA tensors), each with its block of the grid's rows; the

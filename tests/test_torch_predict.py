@@ -49,6 +49,7 @@ from deepsensornz_tpu_torch.infer.predict import Predictor
 from deepsensornz_tpu_torch.models import likelihoods as tlik
 from deepsensornz_tpu_torch.task.batching import take
 from deepsensornz_tpu_torch.models.convnp import ConvNP, ConvNPConfig
+from deepsensornz_tpu_torch.ops import setconv_cuda
 from deepsensornz_tpu_torch.perf import spans
 from deepsensornz_tpu_torch.ops import grids as tgrids
 from deepsensornz_tpu_torch.task import task as ttaskmod
@@ -490,6 +491,94 @@ def test_maps_count_the_land_values_and_the_cells(setting, sea_mask):
     assert sea_mask == (land < Ht * Wt)
 
 
+def _spy_cells(monkeypatch) -> list:
+    """Record the ``cells`` each ``ConvNP`` forward is given."""
+    seen = []
+    forward = ConvNP.forward
+
+    def spy(self, task, target_grid=None, mesh=None, cells=None):
+        seen.append(cells)
+        return forward(self, task, target_grid, mesh, cells)
+
+    monkeypatch.setattr(ConvNP, "forward", spy)
+    return seen
+
+
+_STEPS = {None: None, "float16": 2.0 ** -10, "bfloat16": 2.0 ** -7, "int16": 16, "int8": 8}
+
+
+@pytest.mark.parametrize("chunk", [None, 2], ids=["whole", "chunk2"])
+@pytest.mark.parametrize("dy", [1, 2], ids=["dy1", "dy2"])
+@pytest.mark.parametrize("transfer", list(_STEPS))
+def test_the_land_path_gives_the_whole_grid_paths_maps(setting, two_channel_model, monkeypatch,
+                                                      transfer, dy, chunk):
+    """Without samples the forward is given the land cells and computes
+    them alone; the maps equal those of the whole-grid path (every cell
+    decoded, the land gathered after the moments) with the same NaN sea:
+    within f32 rounding (the head's GEMM has another M), or where the
+    transfer rounds, within its step: half an ulp of the cast each side, or
+    one quantisation step of the map's land range. Five tasks, so chunks of
+    2 pad the tail."""
+    s = setting
+    model = s["model"] if dy == 1 else two_channel_model
+    target = s["st_col"] if dy == 1 else [s["st_col"]] * 2
+    pred = Predictor(model, s["dp"], target, transfer_dtype=transfer, batch_chunk=chunk)
+    task = take(s["task"], [0, 1, 0, 1, 0])
+    seen = _spy_cells(monkeypatch)
+    got = pred.predict_grid(task, s["dem"], aux_at_targets=s["aux"])
+    land = np.flatnonzero(~np.isnan(s["dem"].data.ravel()))
+    assert len(seen) == (1 if chunk is None else 3)
+    assert all(c is not None and c.index.tolist() == land.tolist() for c in seen)
+    monkeypatch.setattr(setconv_cuda, "target_cells", lambda land, *a: land)  # whole grid
+    want = pred.predict_grid(task, s["dem"], aux_at_targets=s["aux"])
+    assert all(c is None for c in seen[len(seen) // 2:])
+    assert list(got) == list(want)
+    step = _STEPS[transfer]
+    for key, w in want.items():
+        g, w = got[key].data, w.data
+        nan = np.isnan(w)
+        np.testing.assert_array_equal(np.isnan(g), nan, err_msg=key)
+        assert nan.any() and not nan.all()
+        top = float(np.abs(w[~nan]).max())
+        if step is None:
+            tol = 0.0
+        elif step < 1:
+            tol = step * top
+        else:  # one step of the map's range over its land cells
+            tol = 1.01 * float(np.ptp(w[~nan])) / (2 ** step - 1)
+        np.testing.assert_allclose(g[~nan], w[~nan], rtol=1e-5, atol=tol + 1e-5 * top,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("likelihood", ["gnp", "bernoulli-gamma"])
+def test_sampled_requests_decode_and_draw_over_the_whole_grid(setting, monkeypatch,
+                                                             likelihood):
+    """With samples the forward is given no cell list: the head's draws are
+    made over every cell of the grid from the request's generator, then
+    the land kept, so the samples are bit for bit those of a forward on
+    the whole grid drawn from the same seed."""
+    s = setting
+    cfg = dataclasses.replace(s["jcfg"], likelihood=likelihood)
+    model = ConvNP.from_task(ConvNPConfig(**dataclasses.asdict(cfg)), s["task"],
+                             generator=torch.Generator().manual_seed(3)).eval()
+    pred = Predictor(model, s["dp"], s["st_col"], std_scale=0.8)
+    seen = _spy_cells(monkeypatch)
+    out = pred.predict_grid(s["task"], s["dem"], aux_at_targets=s["aux"], n_samples=3, seed=7,
+                            unnormalise=False)
+    assert seen == [None]
+    lat, lon, xt1, xt2, aux, land, _ = pred._prepare(s["task"], s["dem"], s["aux"], True, 1.0)
+    B = s["task"].batch_size
+    with torch.inference_mode():
+        raw = model(s["task"], target_grid=(torch.from_numpy(xt1), torch.from_numpy(xt2),
+                                            torch.from_numpy(aux).expand(B, *aux.shape)))
+        raw = pred.likelihood.rescale_raw(raw, 0.8).flatten(1, -2)
+        draws = pred.likelihood.sample(raw, torch.Generator().manual_seed(7), 3)
+    want = draws[:, :, land, 0].numpy()
+    got = out["samples"].data.reshape(3, B, -1)
+    assert got[:, :, land].tobytes() == want.tobytes()
+    assert np.isnan(np.delete(got, land, axis=2)).all()
+
+
 SLAB = 1024
 
 
@@ -604,16 +693,17 @@ def test_back_to_back_uploads_through_the_ring_get_their_own_values():
 
 
 def _upload_bytes(task, dem, aux_channels, land, upload_dtype=None) -> int:
-    """The bytes of a gridded request's upload: the task's leaves (targets
-    cut to one slot, value leaves in ``upload_dtype``) and the target
-    grid's coordinates, aux and land index."""
+    """The bytes of a gridded request's upload without samples: the task's
+    leaves (targets cut to one slot, value leaves in ``upload_dtype``) and
+    the target grid's coordinates, aux, land index ``land`` and the
+    decode's live tiles for it."""
     value = {None: 4, "bfloat16": 2, "float16": 2}[upload_dtype]
     n = sum(4 * (g.x1.numel() + g.x2.numel()) + value * (g.y.numel() + (
         0 if g.mask is None else g.mask.numel())) for g in task.grids)
     n += sum(4 * p.x.numel() + value * (p.y.numel() + p.mask.numel()) for p in task.points)
     B, (Ht, Wt) = task.batch_size, dem.shape
     n += 4 * (B * 2 + B + task.x1g.numel() + task.x2g.numel() + Ht + Wt + Ht * Wt * aux_channels)
-    return n + 8 * land
+    return n + 8 * len(land) + 4 * len(setconv_cuda.decode_live_tiles(land, Ht, Wt))
 
 
 def test_the_cpu_upload_is_as_before(setting):
@@ -633,9 +723,9 @@ def test_the_cpu_upload_is_as_before(setting):
     pred.predict_grid(task, s["dem"], aux_at_targets=s["aux"])
     after = spans.counters("predict_grid.upload")
     moved = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
-    n_land = int((~np.isnan(s["dem"].data)).sum())
+    land = np.flatnonzero(~np.isnan(s["dem"].data))
     assert moved == {"predict_grid.upload_direct_bytes": _upload_bytes(
-        task, s["dem"], task.yt_aux.shape[-1], n_land)}
+        task, s["dem"], task.yt_aux.shape[-1], land)}
     assert pred._ring.nbytes == 0
 
 
@@ -663,8 +753,8 @@ def test_predict_grid_through_the_ring_is_bitwise_the_direct_upload(setting, mon
 
     want, direct_count = run(None)
     got, staged_count = run(staging.StagingRing(slab_bytes=SLAB, n_slabs=3))
-    n_land = int((~np.isnan(s["dem"].data)).sum())
-    sent = _upload_bytes(task, s["dem"], task.yt_aux.shape[-1], n_land, upload_dtype)
+    land = np.flatnonzero(~np.isnan(s["dem"].data))
+    sent = _upload_bytes(task, s["dem"], task.yt_aux.shape[-1], land, upload_dtype)
     assert direct_count == {"predict_grid.upload_direct_bytes": sent}
     assert staged_count == {"predict_grid.upload_staged_bytes": sent}
     for key in want:

@@ -158,3 +158,79 @@ def test_wrappers_reject_other_devices():
     x = torch.zeros(1, 4, 2, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         setconv_cuda.encode_offgrid(x, x, x, x, x, 0.1)
+
+
+# -- (c) the gridded decode at a list of target cells ---------------------------------
+
+
+def _cell_list(kind, Ht, Wt, rng):
+    """Flat target-cell indices: a random fifth, every cell, one cell in
+    each corner and in the ragged last row and column tiles, or none."""
+    if kind == "random":
+        return np.sort(rng.choice(Ht * Wt, Ht * Wt // 5, replace=False))
+    if kind == "all":
+        return np.arange(Ht * Wt)
+    if kind == "corners":
+        r, c = Ht - 1, Wt - 1
+        return np.unique([0, c, r * Wt, r * Wt + c, (Ht // 2) * Wt + c, r * Wt + Wt // 2])
+    return np.zeros(0, np.int64)
+
+
+@pytest.mark.parametrize("row_sums", [False, True], ids=["whole", "row-sums"])
+@pytest.mark.parametrize("kind", ["random", "all", "corners", "empty"])
+def test_decode_grid_at_cells_is_the_whole_decodes_rows(rng, kind, row_sums):
+    """On the CPU the wrapper with ``cells`` (the plain version) gives, bit
+    for bit, the whole decode's rows at those cells, as (B, L, C); with a
+    block's row sums too. A ragged grid: 150 target rows (3 row tiles, the
+    last of 22) and 300 columns (4 column blocks of 80)."""
+    x1g, x2g, f, xt1, xt2 = _t(*_grid(rng, 2, 32, 24, 3, 150, 300))
+    sums = tsc.rbf(xt1[:, None], x1g[None, :], 0.07).sum(-1) * 1.5 if row_sums else None
+    idx = _cell_list(kind, 150, 300, rng)
+    cells = setconv_cuda.target_cells(idx, 150, 300)
+    whole = setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, 0.07, row_sums=sums)
+    got = setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, 0.07, row_sums=sums, cells=cells)
+    assert got.shape == (2, len(idx), 3)
+    torch.testing.assert_close(got, whole.reshape(2, -1, 3)[:, idx], rtol=0, atol=0)
+    plain = tsc.setconv_decode_grid(x1g, x2g, f, xt1, xt2, 0.07, row_sums=sums,
+                                    cells=cells.index)
+    torch.testing.assert_close(plain, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("Ht,Wt", [(150, 300), (64, 88), (278, 260), (1, 1), (70, 1300)])
+def test_decode_live_tiles_are_the_block_tiles_holding_a_cell(rng, Ht, Wt):
+    """``decode_live_tiles`` lists, ascending as ``ut · nTT + tt``, exactly
+    the block tiles (64 rows × ``tiles_per_ut`` column tiles of 8) that
+    hold a listed cell, counted here cell by cell."""
+    t = setconv_cuda.decode_tiling(Ht, 32, Wt)
+    wb = t["tiles_per_ut"] * 8
+    for kind in ("random", "all", "corners", "empty"):
+        idx = _cell_list(kind, Ht, Wt, rng)
+        want = sorted({c // wb * t["nTT"] + r // setconv_cuda.DECODE_BLOCK
+                       for r, c in (divmod(int(i), Wt) for i in idx)})
+        got = setconv_cuda.decode_live_tiles(idx, Ht, Wt)
+        assert got.dtype == np.int32 and got.tolist() == want, kind
+        if kind == "all":
+            assert len(got) == t["nTT"] * t["nUT"]
+
+
+def test_decode_grid_counts_its_tiles_while_recording(rng):
+    """A decode at a list of cells counts, while spans record and on either
+    device, the whole grid's block tiles × planes and the live ones; a
+    decode without a list counts neither."""
+    from deepsensornz_tpu_torch.perf import spans
+
+    x1g, x2g, f, xt1, xt2 = _t(*_grid(rng, 2, 32, 24, 3, 150, 300))
+    idx = _cell_list("corners", 150, 300, rng)
+    cells = setconv_cuda.target_cells(idx, 150, 300)
+    spans.reset("decode_grid.")
+    setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, 0.07, cells=cells)
+    assert spans.counters("decode_grid.") == {}
+    with spans.recording():
+        setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, 0.07)
+        assert spans.counters("decode_grid.") == {}
+        setconv_cuda.decode_grid(x1g, x2g, f, xt1, xt2, 0.07, cells=cells)
+    n_live = len(setconv_cuda.decode_live_tiles(idx, 150, 300))
+    assert 0 < n_live < 3 * 4
+    assert spans.counters("decode_grid.") == {"decode_grid.tiles": 3 * 4 * 2 * 3,
+                                              "decode_grid.tiles_live": n_live * 2 * 3}
+    spans.reset("decode_grid.")

@@ -6,7 +6,9 @@ import json
 import sys
 import threading
 import time
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +24,7 @@ REQUEST_CHILDREN = {"predict_grid.prepare", "predict_grid.upload", "predict_grid
                     "predict_grid.download", "predict_grid.wait", "predict_grid.maps"}
 # the model's device spans of a gridded forward, inside ``predict_grid.device``
 MODEL_SPANS = {"model.encode_grid", "model.decode_grid"}
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -71,9 +74,13 @@ def test_overlapping_children_are_covered_once():
     with spans.recording():
         with spans.span("req") as req:
             here = spans.current()
+            # every child is open when the barrier lets them go, so their
+            # intervals overlap however the threads are scheduled
+            together = threading.Barrier(3, timeout=10)
 
             def work():
                 with spans.span("req.part", parent=here):
+                    together.wait()
                     time.sleep(0.03)
 
             threads = [threading.Thread(target=work) for _ in range(3)]
@@ -335,6 +342,55 @@ def test_predict_grid_records_its_spans(tiny, chunk, threads, n_samples, monkeyp
     snap = spans.snapshot()
     # the children account for the request's wall time
     assert snap["predict_grid"]["self_s"] <= 0.05 * snap["predict_grid"]["total_s"], snap
+
+
+@pytest.fixture(scope="module")
+def cycle_land(tiny):
+    """``cycle24``'s target grid (278×260) with the benchmark's land mask
+    (cells near a registry site, 15.8 %) as the DEM's land, and a 2-task
+    request of the tiny model."""
+    from benchmark import inputs
+    from deepsensornz_tpu_torch.task.batching import take
+
+    dp, _, _, task, model = tiny
+    traffic = json.loads((ROOT / "benchmark" / "traffic" / "cycle24.json").read_text())
+    land = inputs.domain(traffic, {"internal_density": 30}, 0).land
+    dem, aux = cs.target_fields(dp, land.shape, seed=0)
+    dem.data[...] = np.where(land, 100.0, np.nan)
+    return dp, dem, aux, take(task, [0, 1]), model, land
+
+
+@pytest.mark.parametrize("way", ["land", "samples", "no-sea-mask"])
+def test_the_land_path_counts_its_live_tiles_and_cells(cycle_land, way):
+    """A request without samples decodes the land alone: on ``cycle24``'s
+    grid 15 block tiles × planes under ``decode_grid.tiles``, the 10 live
+    ones (0.667) under ``decode_grid.tiles_live``, and B × 11 421 decoded
+    cells under ``model.decode_grid_cells``. With samples or without a sea
+    mask the whole grid is decoded: no ``decode_grid.`` counter, B × Ht × Wt
+    cells. Nothing is counted outside recording."""
+    dp, dem, aux, task, model, land = cycle_land
+    p = Predictor(model, dp, "t", transfer_dtype="int16")
+    kw = dict(aux_at_targets=aux, n_samples=2 if way == "samples" else 0,
+              sea_mask=way != "no-sea-mask")
+    spans.reset("decode_grid.")
+    spans.reset("model.")
+    p.predict_grid(task, dem, **kw)
+    assert spans.counters("decode_grid.") == {} and spans.counters("model.") == {}
+    with spans.recording():
+        p.predict_grid(task, dem, **kw)
+    got = spans.counters("decode_grid.")
+    B, planes = task.batch_size, task.batch_size * model.cfg.decoder_channels
+    assert int(land.sum()) == 11421 and land.shape == (278, 260)
+    if way == "land":
+        assert got == {"decode_grid.tiles": 15 * planes, "decode_grid.tiles_live": 10 * planes}
+        assert spans.counters("model.decode_grid_cells") == {
+            "model.decode_grid_cells": B * 11421}
+    else:
+        assert got == {}
+        assert spans.counters("model.decode_grid_cells") == {
+            "model.decode_grid_cells": B * 278 * 260}
+    spans.reset("decode_grid.")
+    spans.reset("model.")
 
 
 def test_train_epoch_records_one_group_a_step(monkeypatch):
