@@ -57,20 +57,25 @@ issues), ``.launch`` (the host's enqueue of the forward),
 ``.download`` (issuing the copies to pinned memory), ``.wait`` (for a
 chunk's copies), ``.maps`` (on the land values: dequantise,
 ``post_transform``, unnormalise; then each map written once, on the
-request's workers; one per chunk, and one around the ``Field``s); and the
-device spans ``.device`` (all of the forward's device work) with
-``.sample`` (the head's draws) inside it. Counters
+request's workers; one per chunk, and one around the ``Field``s),
+``.drain`` (from the return of the last chunk's ``.wait`` to the
+request's return: the host's work that no queued device work hides, the
+last chunk's ``.maps`` and the ``Field``s'); and the device spans
+``.device`` (all of the forward's device work) with ``.sample`` (the
+head's draws) inside it. Counters
 ``predict_grid.maps_values`` and ``predict_grid.maps_cells`` add, per map
 written, the land values computed on and the grid cells written: their
 ratio is the share of the grid the host computed on. Counters
 ``predict_grid.upload_staged_bytes`` and ``predict_grid.upload_direct_bytes``
 add the bytes uploaded through the ring and by ``.to(device)`` (the CPU
 path), ``predict_grid.upload_slab_waits`` the fills that waited for a
-slab's copy to the card.
+slab's copy to the card; ``predict_grid.chunks``, counted only while
+recording, the chunks a request launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -232,6 +237,16 @@ def _upload(task: TaskBatch, target: tuple, device: torch.device,
             (xt1, xt2, aux, setconv_cuda.TargetCells(*land) if cells else land[0]))
 
 
+def _chunk_index(chunks: list, device: torch.device) -> list:
+    """Each chunk's rows of the uploaded batch as an index on ``device``,
+    all from one copy out of pinned memory: a pageable ``.to(device)`` a
+    chunk would make the host wait for every chunk queued before it."""
+    host = torch.from_numpy(np.concatenate(chunks))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return list(host.to(device, non_blocking=True).split([len(c) for c in chunks]))
+
+
 def _gather_out(out: dict, mesh, batch: int) -> dict:
     """The ranks' transfer-format outputs gathered in rank order, the pad
     rows past ``batch`` dropped: mean/std (and their quantisation ``lo``/
@@ -373,7 +388,7 @@ class Predictor:
         """
         if "mean" not in outputs or not set(outputs) <= {"mean", "std"}:
             raise ValueError(f"outputs must be ('mean','std') or ('mean',); got {outputs}")
-        with spans.span("predict_grid"):
+        with spans.span("predict_grid"), contextlib.ExitStack() as drain:
             with spans.span("predict_grid.prepare"):
                 lat, lon, xt1, xt2, aux, land, inv = self._prepare(
                     task, target_elev, aux_at_targets, sea_mask, resolution_factor)
@@ -381,7 +396,7 @@ class Predictor:
                     # without draws over the whole grid, only the land is computed
                     land = setconv_cuda.target_cells(land, len(xt1), len(xt2))
             maps = self._forward_chunked(task, xt1, xt2, aux, n_samples, seed, outputs, land,
-                                         inv, unnormalise, post_transform, mesh)
+                                         inv, unnormalise, post_transform, mesh, drain)
             with spans.span("predict_grid.maps"):
                 return self._fields(task, lat, lon, maps, times, n_samples)
 
@@ -485,7 +500,7 @@ class Predictor:
         list(pool.map(lambda job: _gather_into(*job), jobs))
 
     def _forward_chunked(self, task, xt1, xt2, aux, n_samples, seed, outputs, land, inv,
-                         unnormalise, post_transform, mesh=None) -> dict:
+                         unnormalise, post_transform, mesh, drain: contextlib.ExitStack) -> dict:
         """The request's finished float32 maps, one list of ``dim_yt``
         channels a key: mean/std (B, Ht, Wt) and samples (n, B, Ht, Wt),
         NaN outside the land when ``land`` is given (:meth:`_write_maps`):
@@ -496,7 +511,9 @@ class Predictor:
         every chunk is launched (with ``mesh``, on the data ranks' rows,
         gathered before the download) and its download started before the
         host waits for the first; the host then writes each chunk's rows
-        while the later chunks run."""
+        while the later chunks run. After the last chunk's wait the span
+        ``predict_grid.drain`` opens on ``drain``, which the caller closes
+        when the request returns."""
         dev = self.device
         B = task.batch_size
         size = min(self.batch_chunk or B, B)
@@ -518,18 +535,23 @@ class Predictor:
                 ring = self._ring if dev.type == "cuda" else None
                 task, target = _upload(task, (xt1, xt2, aux, land), dev, self.upload_dtype,
                                        ring)
-            for off, idx in zip(offsets, chunks):
+                index = None if len(chunks) == 1 else _chunk_index(chunks, dev)
+            if spans.active():
+                spans.count("predict_grid.chunks", len(chunks))
+            for k, off in enumerate(offsets):
                 with spans.span("predict_grid.launch"):
-                    rows = task if len(chunks) == 1 else take(task, torch.from_numpy(idx).to(dev))
+                    rows = task if index is None else take(task, index[k])
                     out = self._device_forward(rows, target, n_samples, seed + off, outputs, mesh,
                                                size)
                 with spans.span("predict_grid.download"):
                     pending.append((off, *_download(out, dev)))
         with ThreadPoolExecutor(self.download_threads) as pool:
-            for off, host, event in pending:
+            for k, (off, host, event) in enumerate(pending):
                 with spans.span("predict_grid.wait"):
                     if event is not None:
                         event.synchronize()
+                if k == len(pending) - 1:
+                    drain.enter_context(spans.span("predict_grid.drain"))
                 with spans.span("predict_grid.maps"):
                     self._write_maps(maps, host, off, min(size, B - off), inv, unnormalise,
                                      post_transform, pool)

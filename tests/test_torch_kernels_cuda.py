@@ -852,3 +852,99 @@ def test_two_rank_gloo_spatial_partition_on_the_card(cuda, monkeypatch):
     _build.load_library()
     counts = cs.spatial_phase(cuda, setconv_cuda, size="small")
     assert all(counts[k] > 0 for k in ("encode_offgrid", "encode_offgrid_grad", "decode_grid"))
+
+
+def test_a_month_request_queues_its_chunks_without_a_sync_in_one_chunks_memory(cuda,
+                                                                              monkeypatch):
+    """A month as ``cli.infer`` sends it, at small widths: 744 hourly tasks
+    of the benchmark's ``month744`` inputs (base 139×130×3, aux 278×260×4,
+    aux at targets 556×520, the registry sites, the 278×260 land) to a
+    ``cnp-spikes-beta`` model with U-Net (8, 8) at density 500, in 31
+    chunks of 24, f16 upload, int16 mean only, humidity's post_transform.
+    The request runs under ``torch.cuda.set_sync_debug_mode("error")``
+    save the waits it means (``Event.synchronize``: each chunk's copies
+    and the staging ring's slabs), so every chunk is queued before the
+    host reads one. Its peak device memory is at most a one-chunk
+    request's plus the month's inputs on the card (the f16 upload and its
+    f32 upcast) and the chunks' int16 outputs, not 31 chunks' working
+    sets; the first and last chunks' maps are bit for bit those of
+    one-chunk requests of their tasks."""
+    import copy
+
+    from benchmark import manifest
+    from benchmark.entries import common, serve_month
+    from deepsensornz_tpu_torch.data.grid import Field
+    from deepsensornz_tpu_torch.data.processor import DataProcessor
+    from deepsensornz_tpu_torch.infer.predict import Predictor
+    from deepsensornz_tpu_torch.perf import spans
+    from deepsensornz_tpu_torch.pipeline.validate import post_transform_for
+    from deepsensornz_tpu_torch.task.batching import take
+
+    cell = copy.deepcopy(manifest.resolve("serve-month.spikesbeta-d500", manifest.load_manifest()))
+    cell.config["model"].update(unet_channels=[8, 8], decoder_channels=8, mlp_hidden=8)
+    cell.traffic["pool"] = 1
+    tr, pr = cell.traffic, cell.traffic["predictor"]
+    dom, pool, weights = serve_month.serve_inputs(cell, 2**31 + 5, cuda)
+    model = common.port_model(cell, weights, cuda).eval()
+    e = tr["extent"]
+    dp = DataProcessor(x1_map=(e["minlat"], e["maxlat"]), x2_map=(e["minlon"], e["maxlon"]),
+                       config={"humidity": cell.config["normalisation"]})
+    dem = Field(np.where(dom.land, 100.0, np.nan), ("latitude", "longitude"),
+                {"latitude": dom.lat, "longitude": dom.lon}, "elevation")
+    highres = Field(dom.highres, ("x1", "x2"), {"x1": dom.highres_x[0].astype(np.float64),
+                                                "x2": dom.highres_x[1].astype(np.float64)},
+                    "elevation")
+    p = Predictor(model, dp, "humidity", std_scale=pr["std_scale"],
+                  transfer_dtype=pr["transfer_dtype"], batch_chunk=pr["batch_chunk"],
+                  download_threads=pr["download_threads"], upload_dtype=pr["upload_dtype"])
+    month = common.task_batch(pool[0], dom, with_targets=False)
+    B, C = month.batch_size, pr["batch_chunk"]
+    assert (B, C) == (744, 24)
+
+    def request(task):
+        return p.predict_grid(task, dem, aux_at_targets=highres, post_transform=post_transform_for(
+            "humidity"), outputs=("mean",))
+
+    def peak(task):
+        request(task)  # warm: shapes, the ring
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        spans.reset("predict_grid.upload_staged_bytes")
+        out = request(task)
+        staged = spans.counters("predict_grid.upload_staged_bytes")
+        return out, torch.cuda.max_memory_allocated(cuda) - base, sum(staged.values())
+
+    firsts, last = take(month, np.arange(C)), take(month, np.arange(B - C, B))
+    one, one_peak, _ = peak(firsts)
+    waits = []
+    real_sync = torch.cuda.Event.synchronize
+
+    def allowed_wait(event):
+        waits.append(event)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real_sync(event)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", allowed_wait)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, month_peak, staged = peak(month)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        monkeypatch.undo()
+    assert len(waits) >= 2 * B // C  # two requests' chunks, at least
+    L = int(dom.land.sum())
+    outputs = B * L * 2 + B * 8
+    # f16 values cross and are upcast: at most 3× what went through the ring
+    bound = one_peak + 3 * staged + outputs + (16 << 20)
+    print(f"one chunk {one_peak / 2**30:.3f} GiB, month {month_peak / 2**30:.3f} GiB, "
+          f"staged {staged / 2**30:.3f} GiB, bound {bound / 2**30:.3f} GiB, waits {len(waits)}")
+    assert month_peak <= bound
+    for rows, ref_pred in ((slice(0, C), one), (slice(B - C, B), request(last))):
+        a, b = got["mean"].data[rows], ref_pred["mean"].data
+        assert a.tobytes() == b.tobytes()
+    assert np.isnan(got["mean"].data[:, ~dom.land]).all()
+    assert np.isfinite(got["mean"].data[:, dom.land]).all()

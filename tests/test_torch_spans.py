@@ -21,7 +21,8 @@ from deepsensornz_tpu_torch.perf import harness, spans
 from deepsensornz_tpu_torch.train.trainer import init_state, make_train_step, train_epoch
 
 REQUEST_CHILDREN = {"predict_grid.prepare", "predict_grid.upload", "predict_grid.launch",
-                    "predict_grid.download", "predict_grid.wait", "predict_grid.maps"}
+                    "predict_grid.download", "predict_grid.wait", "predict_grid.maps",
+                    "predict_grid.drain"}
 # the model's device spans of a gridded forward, inside ``predict_grid.device``
 MODEL_SPANS = {"model.encode_grid", "model.decode_grid"}
 ROOT = Path(__file__).resolve().parents[1]
@@ -331,17 +332,54 @@ def test_predict_grid_records_its_spans(tiny, chunk, threads, n_samples, monkeyp
     device_ids = {s.id for s in recs["predict_grid.device"]}
     assert all(s.parent in device_ids for name in MODEL_SPANS for s in recs[name])
     # every child names its request; each chunk's maps, and the Fields,
-    # are written under the request on its own thread
+    # are written under the request on its own thread, the last chunk's
+    # and the Fields' inside its drain
     for root in roots:
         kids = [s for s in spans.records() if s.group == root.group and s is not root]
         assert {s.name for s in kids} == want - {"predict_grid"}
         assert all(s.parent is not None for s in kids)
+        (drain,) = [s for s in kids if s.name == "predict_grid.drain"]
+        assert drain.parent == root.id
         maps = [s for s in kids if s.name == "predict_grid.maps"]
         assert len(maps) == n_chunks + 1
-        assert all(s.parent == root.id and s.thread == root.thread for s in maps)
+        assert all(s.thread == root.thread for s in maps)
+        assert [s.parent for s in maps] == [root.id] * (n_chunks - 1) + [drain.id] * 2
     snap = spans.snapshot()
     # the children account for the request's wall time
     assert snap["predict_grid"]["self_s"] <= 0.05 * snap["predict_grid"]["total_s"], snap
+
+
+@pytest.mark.parametrize("chunk,n_chunks", [(None, 1), (2, 3), (5, 1)],
+                         ids=["whole", "three-chunks", "one-chunk"])
+def test_predict_grid_drains_once_after_its_last_wait(tiny, chunk, n_chunks):
+    """``predict_grid.drain`` is recorded once a request, inside its
+    ``predict_grid``, from the return of its last ``.wait`` to the
+    request's return; ``predict_grid.chunks`` counts the chunks it
+    launches. Neither records outside ``recording()``."""
+    dp, dem, aux, task, model = tiny
+    p = Predictor(model, dp, "t", transfer_dtype="int16", batch_chunk=chunk, download_threads=2)
+    spans.reset("predict_grid.chunks")
+    p.predict_grid(task, dem, aux_at_targets=aux, outputs=("mean",))
+    assert spans.records() == [] and spans.counters("predict_grid.chunks") == {}
+    with spans.recording():
+        for i in range(2):
+            p.predict_grid(task, dem, aux_at_targets=aux, seed=i, outputs=("mean",))
+    assert spans.counters("predict_grid.chunks") == {"predict_grid.chunks": 2 * n_chunks}
+    recs = spans.records()
+    roots = [s for s in recs if s.name == "predict_grid"]
+    assert len(roots) == 2
+    for root in roots:
+        mine = [s for s in recs if s.group == root.group]
+        (drain,) = [s for s in mine if s.name == "predict_grid.drain"]
+        waits = [s for s in mine if s.name == "predict_grid.wait"]
+        assert len(waits) == n_chunks and drain.parent == root.id
+        assert max(w.end_ns for w in waits) <= drain.start_ns <= drain.end_ns <= root.end_ns
+        # everything after the drain opens is inside it: the last chunk's
+        # maps and the Fields'
+        after = [s for s in mine if s.start_ns >= drain.start_ns and s is not drain]
+        assert [s.name for s in after] == ["predict_grid.maps"] * 2
+        assert all(s.parent == drain.id and s.end_ns <= drain.end_ns for s in after)
+    spans.reset("predict_grid.chunks")
 
 
 @pytest.fixture(scope="module")
